@@ -89,7 +89,7 @@ class FilterResult:
     # subset when a plan cascade masks out already-rejected tuples
     n_input: int = -1
     # tuples decided by replaying a session-memoized earlier run (zero
-    # oracle cost); > 0 only on the repro.api reuse path
+    # oracle cost); > 0 only on the session API's reuse path (a later slice)
     n_replayed: int = 0
 
 

@@ -47,7 +47,7 @@ class OracleStats:
 
     def merge(self, other: "OracleStats") -> "OracleStats":
         """Fold another stats object (typically a delta) into this one —
-        the session-level run aggregate in ``repro.api``."""
+        the session-level run aggregate of the API layer (a later slice)."""
         self.n_calls += other.n_calls
         self.n_cached += other.n_cached
         self.input_tokens += other.input_tokens
@@ -86,7 +86,7 @@ class BaseOracle:
         self.stats = OracleStats()
         self._memo: dict[int, bool] = {}
         # durability hook: called as memo_hook(ids, labels) after every
-        # fresh-evaluation commit (repro.service.log records the entries
+        # fresh-evaluation commit (the service's session log records them
         # so a restarted session replays them at zero oracle cost)
         self.memo_hook = None
 

@@ -9,7 +9,7 @@
 // Bound on the H100 at the main-path shape (one oracle batch: B = 64,
 // H = 32, KV = 8, S = 64, hd = 128, bf16, causal): 2,080 visible (q, k)
 // pairs per head, 4*hd operations each, 2.2 GFLOP, 2.2 us at 989 TFLOP/s;
-// q, k, v and o are 50 MB, 15 us at 3.35 TB/s.  So it is bound by bytes at
+// q, k, v and o are 84 MB, 25 us at 3.35 TB/s.  So it is bound by bytes at
 // this shape, and the next cost is the score work done outside the
 // tensor cores (this first version uses f32 FMAs; wgmma comes later).
 //
