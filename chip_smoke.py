@@ -17,12 +17,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             the CPU (plain versions), which must give equal runs.
 4. model    the same filter over n=4,096 tuples with a ModelOracle served
             by a random-weight llama3.1-8b at full width and depth (bf16,
-            attn_impl="flash") through ServingEngine(max_batch=64).
+            attn_impl="flash") through ServingEngine(max_batch=64); then K4
+            against its plain version at every (batch, bucket) shape the
+            engine served, and the served logits against plain attention.
 
-Each kernel wrapper counts its launches; the counts are set to 0 before
-phase 3 and read after phase 4, and every kernel must have launched.  The
-second-to-last lines are the kernels' JSON record and the card's name and
-power limit; the last line is {"ok": true, "device": {...}}.
+Each kernel wrapper counts its launches.  There are three main-path runs:
+the round executor, the sequential executor and the model path.  The counts
+are set to 0 just before each and read just after it, and each run must
+launch its own kernels and no other (round: K1, K3; sequential: K1, K2;
+model: K1, K3 and K4 = 32 x the engine's batches).  Checks against plain
+versions run outside those windows.  In the kernels' JSON record,
+"launches" is the sum over the three runs and "launches_by_path" splits it.
+The second-to-last lines are that record and the card's name and power
+limit; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -194,6 +201,7 @@ def main() -> int:
                 for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
 
     for dtype, tol, window, s_len in ((torch.float32, 2e-4, None, S),
+                                      (torch.bfloat16, 2e-2, None, 32),
                                       (torch.bfloat16, 2e-2, 64, 256),
                                       (torch.float32, 2e-4, 64, 256)):
         q, kk, v = qkv(dtype, s_len)
@@ -218,15 +226,32 @@ def main() -> int:
                4 * hd * pairs * B * H, "bfloat16"), library_ms)
     del x, xs, s_pad, y_pad, q, kk, v, o1, o2
 
+    by_path = {}
+
+    def counted(path, run, launched):
+        """Run one main path with every count at 0; its kernels (and only
+        those) must launch.  Returns run()'s result."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = run()
+        got = by_path[path] = {k: fn.launches for k, fn in counters.items()}
+        log(f"[{path}] launches {got}")
+        for name, count in got.items():
+            if (count > 0) != (name in launched):
+                raise AssertionError(
+                    f"{name} launched {count} times on the {path} path, "
+                    f"which should launch exactly {sorted(launched)}")
+        return out
+
     # ---------------------------------------------------- 3. data plane
-    for fn in counters.values():
-        fn.launches = 0
     runs = {}
-    for executor in ("round", "sequential"):
+    for executor, vote_kernel in (("round", "simvote_scores_segmented"),
+                                  ("sequential", "simvote_scores")):
         oracle = SyntheticOracle(truth, flip_prob=0.02, seed=0)
         t0 = monotonic()
-        res = semantic_filter(ds.embeddings, oracle,
-                              CSVConfig(vote="sim", executor=executor))
+        res = counted(executor, lambda: semantic_filter(
+            ds.embeddings, oracle, CSVConfig(vote="sim", executor=executor)),
+            {"kmeans_assign", vote_kernel})
         wall = monotonic() - t0
         acc = float((res.mask == truth).mean())
         log(f"[data] {executor}: {res.n_llm_calls} LLM calls for {N_DATA} "
@@ -243,12 +268,6 @@ def main() -> int:
     if not (runs["round"].mask == runs["sequential"].mask).all() or \
             runs["round"].n_llm_calls != runs["sequential"].n_llm_calls:
         raise AssertionError("round and sequential executors disagree")
-    data_launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"[data] launches {data_launches}")
-    for name in ("kmeans_assign", "simvote_scores",
-                 "simvote_scores_segmented"):
-        if data_launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the data plane")
 
     # the card against the CPU's plain versions on a small table: one
     # clustering for both and no re-clustering, so the votes (K3 against
@@ -285,10 +304,11 @@ def main() -> int:
     tracer = Tracer()
     t0 = monotonic()
     with use_tracer(tracer):
-        res = semantic_filter(mds.embeddings, oracle,
-                              CSVConfig(n_clusters=4, vote="sim"))
+        res = counted("model", lambda: semantic_filter(
+            mds.embeddings, oracle, CSVConfig(n_clusters=4, vote="sim")),
+            {"kmeans_assign", "simvote_scores_segmented", "flash_attention"})
     wall = monotonic() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = by_path["model"]
     engine_s = sum(sp.duration_s for sp in tracer.spans()
                    if sp.kind == "engine_tick")
     st = engine.stats
@@ -299,33 +319,49 @@ def main() -> int:
         f"prompts, {st['prefill_tokens']} prefill tokens in {engine_s:.2f} s "
         f"= {st['prefill_tokens'] / engine_s:.0f} prefill tokens/s, "
         f"bucket fill {engine.batcher.fill_ratio:.3f}  [{smi}]")
-    log(f"[main path] launches {launches}")
     if res.n_llm_calls + res.n_voted != N_MODEL:
         raise AssertionError("calls + votes do not cover the table")
     if launches["flash_attention"] != cfg.n_layers * st["batches"]:
         raise AssertionError(
             f"flash launches {launches['flash_attention']} != "
             f"{cfg.n_layers} x {st['batches']} batches")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+
+    # K4 against its plain version at every (batch, bucket) shape served
+    served = sorted({(sp.attrs["batch"], sp.attrs["bucket_len"])
+                     for sp in tracer.spans() if sp.kind == "engine_tick"})
+    g.manual_seed(1)
+    hd, dt = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+    for b, s_len in served:
+        q, kk, v = (torch.randn((b, heads, s_len, hd), generator=g,
+                                device=dev).to(dt)
+                    for heads in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        torch.testing.assert_close(
+            flash_attention_cuda(q, kk, v).float(),
+            flash_attention_ref(q, kk, v).float(), rtol=2e-2, atol=2e-2)
+    log(f"[model] flash_attention within 2e-2 of its plain version at the "
+        f"served (batch, bucket) shapes {served}")
 
     # the served path against the same weights with plain attention
-    probe = oracle.pack_prompts(range(64))
-    tids = oracle.pack_token_ids(64)
+    n_probe = 256
+    probe = oracle.pack_prompts(range(n_probe))
+    tids = oracle.pack_token_ids(n_probe)
     plain = ServingEngine(cfg.replace(attn_impl="flash-ref"), params,
                           max_batch=64)
     diff = float(np.abs(engine.first_token_logits(probe, tids)
                         - plain.first_token_logits(probe, tids)).max())
     log(f"[model] yes/no logits, flash kernel vs plain attention: max abs "
-        f"diff {diff:.4g} over 64 prompts")
-    if not diff < 0.5:  # bf16 rounding through 32 layers, logits ~ N(0, 1)
+        f"diff {diff:.4g} over {n_probe} prompts")
+    # bf16 rounding through 32 layers: 0.044 over 64 prompts on an H100
+    # (PERF.md); the limit is about three times that
+    if not diff < 0.15:
         raise AssertionError(f"kernel and plain logits differ by {diff}")
 
     kernels = []
     for name, rec in record.items():
+        split = {path: got[name] for path, got in by_path.items()}
         kernels.append({"name": name, "route": "cuda", **rec,
-                        "launches": launches[name]})
+                        "launches": sum(split.values()),
+                        "launches_by_path": split})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

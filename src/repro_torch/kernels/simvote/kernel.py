@@ -17,7 +17,9 @@ from repro_torch.kernels import build
 BLOCK_N = 32  # rows per CUDA block; matches BN in simvote.cu
 
 
-def _launch(x, counts, s_pad, y_pad, inv2t2: np.ndarray) -> torch.Tensor:
+def _launch(wrapper, x, counts, s_pad, y_pad,
+            inv2t2: np.ndarray) -> torch.Tensor:
+    """Score on the card; ``wrapper.launches`` counts real launches only."""
     build.require_cuda("simvote", x, s_pad, y_pad)
     for t in (x, s_pad, y_pad):
         if t.dtype != torch.float32:
@@ -48,6 +50,7 @@ def _launch(x, counts, s_pad, y_pad, inv2t2: np.ndarray) -> torch.Tensor:
         s_pad.data_ptr(), y_pad.data_ptr(), inv_d.data_ptr(),
         scores.data_ptr(), n_blocks, m, d, build.stream_ptr(x.device))
     build.check(err, "simvote_segmented")
+    wrapper.launches += 1
     return scores
 
 
@@ -57,18 +60,15 @@ def simvote_scores_segmented_cuda(x, counts, s_pad, y_pad, taus):
     # 1 / (2 tau^2) in float32, as the segmented TPU wrapper computes it
     t32 = np.asarray(taus, np.float32)
     inv2t2 = (np.float32(1.0) / (np.float32(2.0) * t32 ** 2)).astype(np.float32)
-    scores = _launch(x, counts, s_pad, y_pad, inv2t2)
-    simvote_scores_segmented_cuda.launches += 1
-    return scores
+    return _launch(simvote_scores_segmented_cuda, x, counts, s_pad, y_pad,
+                   inv2t2)
 
 
 def simvote_scores_cuda(x, s, y, tau: float):
     """x (N,D), s (M,D), y (M,) -> scores (N,): K3 with one cluster."""
     inv2t2 = np.asarray([1.0 / (2.0 * tau * tau)], np.float32)
-    scores = _launch(x, [x.shape[0]], s[None], y.reshape(1, -1).contiguous(),
-                     inv2t2)
-    simvote_scores_cuda.launches += 1
-    return scores
+    return _launch(simvote_scores_cuda, x, [x.shape[0]], s[None],
+                   y.reshape(1, -1).contiguous(), inv2t2)
 
 
 simvote_scores_segmented_cuda.launches = 0

@@ -2,9 +2,9 @@
 
 Every duration measurement routes through ``monotonic()``
 (``time.perf_counter`` — monotonic, immune to wall-clock steps/NTP slews).
-``time_cuda`` replaces the reference's ``time_jax``: PyTorch returns before
-the device finishes, so a host clock around device work measures only the
-enqueue unless the timer synchronises.
+``cuda_event_ms`` replaces the reference's ``time_jax``: PyTorch returns
+before the device finishes, so a host clock around device work measures
+only the enqueue; CUDA events time the device work itself.
 """
 from __future__ import annotations
 
@@ -34,26 +34,6 @@ class Timer:
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self.start
         return False
-
-
-def time_cuda(fn, *args, warmup: int = 1, iters: int = 3, **kwargs) -> float:
-    """Median wall-clock seconds of fn(*args), synchronising the device.
-
-    ``torch.cuda.synchronize`` runs before the clock starts and before it
-    stops, so each sample covers the device work ``fn`` queued.  Needs a
-    CUDA device: a device timer never falls back to the host clock alone.
-    """
-    for _ in range(warmup):
-        fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2]
 
 
 def cuda_event_ms(fn, *args, warmup: int = 3, iters: int = 20) -> float:
