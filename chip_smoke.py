@@ -7,10 +7,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. build    nvcc builds every kernel from src/repro_torch/csrc into build/.
 2. kernels  each CUDA kernel (K1 k-means assignment, K2/K3 SimVote, K4
-            flash prefill) against its plain PyTorch version on the card at
-            the main path's shapes, with its time, the plain version's
-            time, a library yardstick where one exists and the card's
-            least time for the same work (its bound).
+            flash prefill, K5 flash decoding) against its plain PyTorch
+            version on the card at the main path's shapes, with its time,
+            the plain version's time, a library yardstick where one exists
+            and the card's least time for the same work (its bound).  The
+            times are device time a call, 20 calls between one event pair
+            with the host ahead of the card (utils.timing.device_ms); one
+            kernel call alone (cuda_event_ms) is logged beside them.
 3. data     the CSV filter over make_dataset("imdb_review", n=50,000,
             dim=1024) with a SyntheticOracle, round and sequential
             executors, vote="sim"; then a small table on the card and on
@@ -20,14 +23,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             attn_impl="flash") through ServingEngine(max_batch=64); then K4
             against its plain version at every (batch, bucket) shape the
             engine served, and the served logits against plain attention.
+5. generate ServingEngine.generate on the same weights and engine: greedy,
+            128 prompts of the model path's oracle, 32 new tokens each;
+            then K5 against its plain version at every (batch, cache
+            length) served, decode_step logits on the kernel path against
+            plain attention (one cache, teacher-forced) with a faulty
+            control that the limit must catch, the share of tokens on which
+            the kernel and plain-attention streams agree, decode tokens/s
+            and, from the engine_tick spans less one prefill timed by hand,
+            ms per decode step and the prefill share.
 
-Each kernel wrapper counts its launches.  There are three main-path runs:
-the round executor, the sequential executor and the model path.  The counts
-are set to 0 just before each and read just after it, and each run must
-launch its own kernels and no other (round: K1, K3; sequential: K1, K2;
-model: K1, K3 and K4 = 32 x the engine's batches).  Checks against plain
+Each kernel wrapper counts its launches.  There are four main-path runs:
+the round executor, the sequential executor, the model path and generate.
+The counts are set to 0 just before each and read just after it, and each
+run must launch its own kernels and no other (round: K1, K3; sequential:
+K1, K2; model: K1, K3 and K4 = 32 x the engine's batches; generate: K4 =
+32 x batches and K5 = 32 x batches x 32 new tokens).  Checks against plain
 versions run outside those windows.  In the kernels' JSON record,
-"launches" is the sum over the three runs and "launches_by_path" splits it.
+"launches" is the sum over the four runs and "launches_by_path" splits it.
 The second-to-last lines are that record and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -40,6 +53,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory, bytes/s
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores, bf16 tensor
 N_DATA, DIM, N_MODEL = 50_000, 1024, 4096
+N_GEN, MAX_NEW = 128, 32   # generate: prompts, new tokens (<= 64: no clamp)
+DECODE_LIMIT = 0.25        # teacher-forced decode logits, K5 vs plain
 
 
 def log(*args):
@@ -74,6 +89,9 @@ def main() -> int:
     from repro_torch.core.voting import default_bandwidth
     from repro_torch.data import HashTokenizer, make_dataset
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.kmeans.kernel import assign_clusters_cuda
@@ -85,7 +103,7 @@ def main() -> int:
     from repro_torch.models import lm
     from repro_torch.obs.trace import Tracer, use_tracer
     from repro_torch.serving import ServingEngine
-    from repro_torch.utils.timing import cuda_event_ms, monotonic
+    from repro_torch.utils.timing import cuda_event_ms, device_ms, monotonic
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -102,7 +120,8 @@ def main() -> int:
     counters = {"kmeans_assign": assign_clusters_cuda,
                 "simvote_scores": simvote_scores_cuda,
                 "simvote_scores_segmented": simvote_scores_segmented_cuda,
-                "flash_attention": flash_attention_cuda}
+                "flash_attention": flash_attention_cuda,
+                "decode_attention": decode_attention_cuda}
     record = {
         "kmeans_assign": {
             "source": "src/repro_torch/csrc/kmeans_assign.cu",
@@ -116,15 +135,30 @@ def main() -> int:
         "flash_attention": {
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:70"},
+        "decode_attention": {
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:62"},
     }
 
-    def note(name, err, kernel_ms, plain_ms, bnd, library_ms=None):
-        record[name].update(max_abs_err=float(err), ms=kernel_ms,
-                            plain_ms=plain_ms, bound_ms=bnd[0],
-                            bound_by=bnd[1], library_ms=library_ms)
-        log(f"[kernels] {name}: max_abs_err {err:.3g}, kernel {kernel_ms:.4f}"
-            f" ms, plain {plain_ms:.4f} ms, library {library_ms} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]})  [{smi}]")
+    def note(name, err, bnd, kernel, plain, sets, library=None,
+             library_sets=None):
+        """Time the kernel, its plain version and the library call with
+        device_ms over the argument tuples ``sets`` (the library call over
+        ``library_sets`` where its arguments differ), and one kernel call
+        alone with cuda_event_ms; record them beside the bound."""
+        (ms, k_ahead), (plain_ms, p_ahead) = (device_ms(fn, sets)
+                                              for fn in (kernel, plain))
+        library_ms, l_ahead = (None, None) if library is None else \
+            device_ms(library, library_sets or sets)
+        call_ms = cuda_event_ms(kernel, *sets[0])
+        record[name].update(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=library_ms, call_ms=call_ms)
+        log(f"[kernels] {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
+            f"(one call alone {call_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"library {library_ms} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); host "
+            f"ahead of the card: kernel {k_ahead}, plain {p_ahead}, library "
+            f"{l_ahead}  [{smi}]")
 
     # ------------------------------------------------------- 2. kernels
     t0 = monotonic()
@@ -149,10 +183,9 @@ def main() -> int:
     torch.testing.assert_close(d1, d2, rtol=1e-5, atol=1e-5)
     n, k = x.shape[0], cents.shape[0]
     note("kmeans_assign", (d1 - d2).abs().max().item(),
-         cuda_event_ms(assign_clusters_cuda, x, cents),
-         cuda_event_ms(assign_clusters_ref, x, cents),
          bound(4 * (n * DIM + k * DIM + k) + 8 * n,
-               2 * n * k * DIM + 2 * n * DIM, "float32"))
+               2 * n * k * DIM + 2 * n * DIM, "float32"),
+         assign_clusters_cuda, assign_clusters_ref, [(x, cents)])
 
     # K3 at a round-0 shape: the four clusters of K1's assignment, 101
     # samples each (min_sample), the rest scored in one launch
@@ -174,10 +207,10 @@ def main() -> int:
     nr, m = int(counts.sum()), 101
     c = len(counts)
     note("simvote_scores_segmented", (r1 - r2).abs().max().item(),
-         cuda_event_ms(simvote_scores_segmented_cuda, *seg_args),
-         cuda_event_ms(simvote_scores_segmented_ref, *seg_args),
          bound(4 * (nr * DIM + c * m * DIM + c * m + c + nr),
-               2 * nr * m * DIM + 2 * (nr + c * m) * DIM, "float32"))
+               2 * nr * m * DIM + 2 * (nr + c * m) * DIM, "float32"),
+         simvote_scores_segmented_cuda, simvote_scores_segmented_ref,
+         [seg_args])
 
     # K2 at a sequential-executor shape: one of those clusters alone
     xk2 = xs[:int(counts[0])]
@@ -187,10 +220,9 @@ def main() -> int:
     torch.testing.assert_close(r1, r2, rtol=1e-5, atol=1e-6)
     n2 = xk2.shape[0]
     note("simvote_scores", (r1 - r2).abs().max().item(),
-         cuda_event_ms(simvote_scores_cuda, *k2_args),
-         cuda_event_ms(simvote_scores_ref, *k2_args),
          bound(4 * (n2 * DIM + m * DIM + m + 1 + n2),
-               2 * n2 * m * DIM + 2 * (n2 + m) * DIM, "float32"))
+               2 * n2 * m * DIM + 2 * (n2 + m) * DIM, "float32"),
+         simvote_scores_cuda, simvote_scores_ref, [k2_args])
 
     # K4 at one oracle batch of llama3.1-8b: B=64, H=32, KV=8, S=64, hd=128
     B, H, KV, S, hd = 64, 32, 8, 64, 128
@@ -216,15 +248,54 @@ def main() -> int:
     o2 = flash_attention_ref(q, kk, v)
     torch.testing.assert_close(o1.float(), o2.float(), rtol=2e-2, atol=2e-2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_event_ms(
-        lambda: sdpa(q, kk, v, is_causal=True, enable_gqa=True))
     pairs = S * (S + 1) // 2
     note("flash_attention", (o1.float() - o2.float()).abs().max().item(),
-         cuda_event_ms(flash_attention_cuda, q, kk, v),
-         cuda_event_ms(flash_attention_ref, q, kk, v),
          bound(2 * (2 * B * H * S * hd + 2 * B * KV * S * hd),
-               4 * hd * pairs * B * H, "bfloat16"), library_ms)
-    del x, xs, s_pad, y_pad, q, kk, v, o1, o2
+               4 * hd * pairs * B * H, "bfloat16"),
+         flash_attention_cuda, flash_attention_ref, [(q, kk, v)],
+         lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+
+    def decode_inputs(b, L, dtype, heads=H, kv_heads=KV, hd=hd):
+        """q (b, H, hd); k/v as the model's (b, L, KV, hd) cache permuted
+        to (b, KV, L, hd) views; ragged lengths in [1, L], 1 and L among
+        them."""
+        qd = torch.randn((b, heads, hd), generator=g, device=dev).to(dtype)
+        kd, vd = (torch.randn((b, L, kv_heads, hd), generator=g, device=dev)
+                  .to(dtype).permute(0, 2, 1, 3) for _ in range(2))
+        lens = torch.randint(1, L + 1, (b,), generator=g, device=dev)
+        lens[0], lens[-1] = 1, L
+        return qd, kd, vd, lens.to(torch.int32)
+
+    # K5 at the generate path's shape: B 64, H 32, KV 8, hd 128, L = the
+    # 64-token bucket + 64 new-token slots = 128
+    L_GEN = 128
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        dargs = decode_inputs(B, L_GEN, dtype)
+        torch.testing.assert_close(decode_attention_cuda(*dargs).float(),
+                                   decode_attention_ref(*dargs).float(),
+                                   rtol=tol, atol=tol)
+        log(f"[kernels] decode_attention {dtype} B={B} L={L_GEN}: within "
+            f"{tol}")
+    o1 = decode_attention_cuda(*dargs)
+    o2 = decode_attention_ref(*dargs)
+    # timed over four such inputs in turn, 134 MB of caches against the
+    # 50 MB L2, so K/V come from device memory as each layer's do in a
+    # decode step; the bound counts the first input's visible slots, and
+    # the other three draw their lengths from the same distribution
+    sets = [dargs] + [decode_inputs(B, L_GEN, torch.bfloat16)
+                      for _ in range(3)]
+    slots = torch.arange(L_GEN, device=dev)
+    lib_sets = [(qd[:, :, None], kd, vd,
+                 (slots[None, :] < lens[:, None])[:, None, None, :])
+                for qd, kd, vd, lens in sets]
+    visible = int(dargs[3].sum())
+    note("decode_attention", (o1.float() - o2.float()).abs().max().item(),
+         bound(2 * (2 * B * H * hd + 2 * visible * KV * hd) + 4 * B,
+               4 * hd * H * visible, "bfloat16"),
+         decode_attention_cuda, decode_attention_ref, sets,
+         lambda q, k, v, mask: sdpa(q, k, v, attn_mask=mask,
+                                    enable_gqa=True), lib_sets)
+    del x, xs, s_pad, y_pad, q, kk, v, o1, o2, dargs, sets, lib_sets
 
     by_path = {}
 
@@ -355,6 +426,119 @@ def main() -> int:
     # (PERF.md); the limit is about three times that
     if not diff < 0.15:
         raise AssertionError(f"kernel and plain logits differ by {diff}")
+
+    # ------------------------------------------------------- 5. generate
+    gen_prompts = oracle.pack_prompts(range(N_GEN))
+    tracer = Tracer()
+    decoded = engine.stats["decode_tokens"]
+    with use_tracer(tracer):
+        streams = counted("generate", lambda: engine.generate(
+            gen_prompts, max_new=MAX_NEW),
+            {"flash_attention", "decode_attention"})
+    launches = by_path["generate"]
+    ticks = [sp for sp in tracer.spans()
+             if sp.kind == "engine_tick" and sp.attrs["phase"] == "generate"]
+    gen_s = sum(sp.duration_s for sp in ticks)
+    decoded = engine.stats["decode_tokens"] - decoded
+    n_batches = len(ticks)
+    served = sorted({(sp.attrs["batch"], sp.attrs["bucket_len"])
+                     for sp in ticks})
+    log(f"[generate] {N_GEN} prompts, {MAX_NEW} new tokens each: "
+        f"{n_batches} batches at (batch, bucket) {served}, {decoded} decode "
+        f"tokens in {gen_s:.3f} s of engine_tick spans = "
+        f"{decoded / gen_s:.1f} decode tokens/s  [{smi}]")
+    if [len(s) for s in streams] != [MAX_NEW] * N_GEN or \
+            not all(0 <= t < cfg.padded_vocab for s in streams for t in s):
+        raise AssertionError("generate returned malformed streams")
+    if decoded != N_GEN * MAX_NEW:
+        raise AssertionError(f"{decoded} decode tokens, not {N_GEN * MAX_NEW}")
+    if launches["flash_attention"] != cfg.n_layers * n_batches or \
+            launches["decode_attention"] != cfg.n_layers * n_batches * MAX_NEW:
+        raise AssertionError(
+            f"generate launched K4 {launches['flash_attention']} and K5 "
+            f"{launches['decode_attention']} times over {n_batches} batches")
+
+    # K5 against its plain version at every (batch, cache length) served
+    g.manual_seed(2)
+    for b, bucket in served:
+        dargs = decode_inputs(b, bucket + 64, dt, cfg.n_heads,
+                              cfg.n_kv_heads, hd)
+        torch.testing.assert_close(decode_attention_cuda(*dargs).float(),
+                                   decode_attention_ref(*dargs).float(),
+                                   rtol=2e-2, atol=2e-2)
+    log(f"[generate] decode_attention within 2e-2 of its plain version at "
+        f"the served (batch, cache length) shapes "
+        f"{[(b, s + 64) for b, s in served]}")
+
+    # a batch's prefill alone, timed once by hand on the first batch (the
+    # engine_tick spans hold a batch's prefill and its decode steps
+    # together), and the cache it leaves: decode_step on the kernel path
+    # against plain attention from that cache, teacher-forced with the
+    # kernel path's greedy tokens.  A control decoder runs K5 with
+    # lengths - 1 (each step's own key dropped) through the same steps;
+    # the limit must lie between the sound and the faulty readings.
+    import repro_torch.kernels.decode_attention.ops as k5_ops
+    plain_cfg = cfg.replace(attn_impl="flash-ref")
+    real_k5 = k5_ops.decode_attention
+
+    def faulty_k5(q, k, v, lengths, *, impl="auto"):
+        return real_k5(q, k, v, lengths - 1, impl=impl)
+
+    def clone(cache):  # decode_step updates a cache in place
+        return [{n: {kv: t.clone() for kv, t in e.items()}
+                 for n, e in sb.items()} for sb in cache]
+
+    idx, toks, lens = next(iter(engine.batcher.plan(gen_prompts)))
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        h, cache, _ = lm.prefill_hidden(cfg, params,
+                                        torch.from_numpy(toks).to(dev),
+                                        max_len=toks.shape[1] + 64)
+        pos = torch.from_numpy(lens).to(dev)
+        cur = torch.argmax(lm.hidden_logits(
+            cfg, params, h[torch.arange(len(idx), device=dev), pos - 1]),
+            dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = monotonic() - t0
+        del h
+        ref_cache, bad_cache = clone(cache), clone(cache)
+        diffs, controls = [], []
+        for _ in range(3):
+            got, cache = lm.decode_step(cfg, params, cache, cur, pos)
+            want, ref_cache = lm.decode_step(plain_cfg, params, ref_cache,
+                                             cur, pos)
+            k5_ops.decode_attention = faulty_k5
+            try:
+                bad, bad_cache = lm.decode_step(cfg, params, bad_cache, cur,
+                                                pos)
+            finally:
+                k5_ops.decode_attention = real_k5
+            diffs.append(float((got - want).abs().max()))
+            controls.append(float((bad - want).abs().max()))
+            pos, cur = pos + 1, torch.argmax(got, dim=-1)
+        del cache, ref_cache, bad_cache, got, want, bad
+    step_ms = (gen_s / n_batches - prefill_s) / MAX_NEW * 1e3
+    log(f"[generate] from the engine_tick spans less a prefill timed by hand"
+        f" ({prefill_s * 1e3:.2f} ms): {step_ms:.3f} ms a decode step, "
+        f"prefill share {prefill_s * n_batches / gen_s:.4f}  [{smi}]")
+    log(f"[generate] decode_step logits over 3 teacher-forced steps, max abs "
+        f"diff from plain attention: K5 {[f'{d:.4g}' for d in diffs]}, "
+        f"control (K5 given lengths - 1) {[f'{d:.4g}' for d in controls]}")
+    # bf16 rounding through 32 layers over (64, 128,256) logits: 0.084 at
+    # most over 3 steps on an H100, the control 0.81-0.88 (PERF.md); the
+    # limit is about the geometric mean of the two
+    if not max(diffs) < DECODE_LIMIT < max(controls):
+        raise AssertionError(
+            f"kernel and plain decode logits differ by {max(diffs)}, the "
+            f"control by {max(controls)}: the limit {DECODE_LIMIT} must lie "
+            f"between them")
+    plain_streams = plain.generate(gen_prompts, max_new=MAX_NEW)
+    agree = np.mean([a == b for s1, s2 in zip(streams, plain_streams)
+                     for a, b in zip(s1, s2)])
+    log(f"[generate] the kernel and plain-attention greedy streams agree on "
+        f"{agree:.4f} of {N_GEN * MAX_NEW} tokens (reported, not required: "
+        f"near-ties over the vocab flip in bf16)")
 
     kernels = []
     for name, rec in record.items():

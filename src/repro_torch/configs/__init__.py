@@ -1,5 +1,5 @@
-"""Architecture registry (ported so far: the oracle backbone and a
-QKV-bias dense model).
+"""Architecture registry (ported so far: the oracle backbone, a QKV-bias
+dense model and a dense model with sliding-window layers).
 
 ``get_config(name)`` returns the full-scale config; ``smoke_config(name)``
 a reduced same-family config that runs a real forward on the CPU.

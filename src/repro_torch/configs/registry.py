@@ -10,6 +10,8 @@ _ARCH_MODULES = [
     "qwen15_05b",
     # the paper's oracle LLM
     "llama31_8b",
+    # dense with 5:1 sliding-window:global layers (the decode ring buffer)
+    "gemma3_12b",
 ]
 
 ARCHS: Dict[str, "object"] = {}

@@ -28,11 +28,13 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 # C entry point -> argument types; every entry point returns cudaError_t
 SIGNATURES = {
     "kmeans_assign": [P, P, P, P, P, I, I, I, I, P],
     "simvote_segmented": [P, P, P, P, P, P, P, P, I, I, I, P],
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "decode_attention_fwd": [P, P, P, P, P, I, I, I, I, I, LL, LL, LL, I, P],
 }
 
 

@@ -8,7 +8,10 @@ Conventions (the reference's)
 - softmax runs in float32 regardless of the parameter type.
 - params are plain nested dicts of tensors.
 
-Chunked attention, MoE and Mamba are later slices of the port.
+``attention_decode`` is the decode step's attention: global layers on the
+flash-decoding kernel (``attn_impl="flash"``), sliding-window ring
+buffers in plain torch.  Chunked attention, MoE and Mamba are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -177,6 +180,71 @@ def attention_apply(cfg: ModelConfig, p, x, *, causal=True, window=None,
     raise NotImplementedError(
         f"attn_impl={impl!r} at S={S} takes the chunked attention schedules, "
         "which are not ported yet (ROADMAP.md queue 1: the model zoo)")
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+
+def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
+                     cross_kv=None):
+    """One-token decode against a KV cache.
+
+    cache: {"k": (B, L, KV, hd), "v": (B, L, KV, hd)}; L = full seq for
+    global layers, ring size for sliding-window layers.  Keys are stored
+    post-RoPE.  ``pos``: (B,) current position (0-based index of the new
+    token).  Returns (out (B,1,D), cache).
+
+    The new K/V row is written into ``cache`` in place (the reference's
+    ``.at[].set`` returns a new array); the returned cache is the same
+    dict.  A caller that needs the old contents clones them first.
+    """
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention decode serves encoder-decoder models, which "
+            "are not ported yet (ROADMAP.md queue 1)")
+    B = x1.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k_new, v_new = _project_qkv(cfg, p, x1)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q.reshape(B, 1, -1, hd), pos[:, None],
+                       cfg.rope_theta).reshape(q.shape)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    L = k_cache.shape[1]
+    # a global layer's slot is clamped to L - 1: past L new tokens the
+    # reference overwrites its last slot, and so does the port (parity)
+    slot = pos % L if window is not None else torch.clamp(pos, max=L - 1)
+    bidx = torch.arange(B, device=x1.device)
+    k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+
+    if cfg.attn_impl in ("flash", "flash-ref") and window is None:
+        # flash-decoding kernel: global layers keep a contiguous prefix
+        # cache (slot s = position s), exactly the kernel's lengths
+        # semantics.  Windowed ring buffers stay on the plain path below.
+        from repro_torch.kernels.decode_attention.ops import decode_attention
+        qd = q.reshape(B, -1, hd)                 # (B, H, hd)
+        kd = k_cache.permute(0, 2, 1, 3)          # (B, KV, L, hd), a view
+        vd = v_cache.permute(0, 2, 1, 3)
+        impl = "ref" if cfg.attn_impl == "flash-ref" else "auto"
+        out = decode_attention(qd, kd, vd, pos + 1, impl=impl)
+        return out.reshape(B, 1, -1) @ p["wo"], cache
+
+    # validity: which cache slots hold tokens visible to this query
+    slot_ids = torch.arange(L, device=x1.device)[None, :]  # (1, L)
+    if window is None:
+        valid = slot_ids <= pos[:, None]
+    else:
+        # ring buffer: slot s holds absolute position p' = s (mod L), the
+        # largest such p' <= pos; it is valid if pos - p' < window, p' >= 0
+        delta = (pos[:, None] - slot_ids) % L  # age of entry in slots
+        valid = delta < torch.clamp(pos[:, None] + 1, max=window)
+    out = _sdpa(q, k_cache, v_cache, valid[:, None, None, None, :],
+                1.0 / math.sqrt(hd))
+    return out.reshape(B, 1, -1) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,15 @@
-"""Batched serving engine: prefill over the ported model subset.
+"""Batched serving engine: prefill + decode over the ported model subset.
 
 Drives the oracle-LLM side of the CSV pipeline: ``first_token_logits``
-serves the semantic filter's yes/no decisions.  Prompts are grouped into
-power-of-two length buckets by the same ``BucketBatcher`` as the
-reference.  ``generate`` and the decode path are a later slice of the port.
+serves the semantic filter's yes/no decisions; ``generate`` serves the
+example apps, decoding over a KV cache (global layers on the
+flash-decoding kernel under ``attn_impl="flash"``).  Prompts are grouped
+into power-of-two length buckets by the same ``BucketBatcher`` as the
+reference.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,3 +96,74 @@ class ServingEngine:
         for k in ("truncated_prompts", "truncated_tokens"):
             self.stats[k] = self.batcher.stats[k]
         return out
+
+    # --------------------------------------------------------------- decode
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[List[int]], max_new: int = 16,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> List[List[int]]:
+        """Greedy/temperature decoding; returns generated ids per prompt.
+
+        ``temperature > 0`` draws Gumbel noise from ``generator``, a
+        ``torch.Generator`` on the engine's device (the reference's
+        ``jax.random`` stream cannot be reproduced in torch).  Tokens stay
+        on the device between steps and come back to the host once per
+        batch.
+        """
+        if temperature > 0 and generator is None:
+            raise ValueError("temperature > 0 needs a torch.Generator on "
+                             "the engine's device")
+        results: List[List[int]] = [[] for _ in prompts]
+        tr = get_tracer()
+        for idx, toks, lens in self.batcher.plan(prompts):
+            L = toks.shape[1]
+            with tr.span("engine_tick", kind="engine_tick", phase="generate",
+                         bucket_len=int(L), batch=int(len(idx)),
+                         tokens=int(lens.sum()), max_new=int(max_new),
+                         attn_impl=self.cfg.attn_impl):
+                # the reference's cache length: past 64 new tokens every
+                # step writes the last slot (attention_decode's clamp)
+                h, cache, _ = lm.prefill_hidden(
+                    self.cfg, self.params, self._to_device(toks),
+                    max_len=L + 64)
+                # next_pos per sequence = its true length (cache rows
+                # beyond a prompt's length contain pad K/V — masked by
+                # per-seq pos); the logits are those of row lens - 1
+                pos = self._to_device(lens)
+                rows = torch.arange(len(idx), device=self.device)
+                cur = self._sample(lm.hidden_logits(self.cfg, self.params,
+                                              h[rows, pos - 1]),
+                                   temperature, generator)
+                del h
+                steps = []
+                for _ in range(max_new):
+                    steps.append(cur)
+                    logits, cache = lm.decode_step(self.cfg, self.params,
+                                                   cache, cur, pos)
+                    pos = pos + 1
+                    cur = self._sample(logits, temperature, generator)
+                    self.stats["decode_tokens"] += len(idx)
+                if steps:
+                    out = torch.stack(steps, dim=1).cpu().numpy()
+                    for r, k in enumerate(idx):
+                        results[k].extend(int(t) for t in out[r])
+            tr.metrics.inc("engine.prefill_tokens", int(lens.sum()))
+            tr.metrics.inc("engine.decode_tokens", int(max_new * len(idx)))
+            tr.metrics.inc("engine.ticks")
+        for k in ("truncated_prompts", "truncated_tokens"):
+            self.stats[k] = self.batcher.stats[k]
+        return results
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, temperature: float,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Next ids (B,) on the logits' device; argmax keeps the first
+        maximum, as ``np.argmax`` does."""
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        gumbel = -torch.log(-torch.log(
+            u.clamp_min(torch.finfo(torch.float32).tiny)))
+        return torch.argmax(logits / temperature + gumbel, dim=-1)
