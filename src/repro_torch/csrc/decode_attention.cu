@@ -14,177 +14,270 @@
 // once for G = 4 query heads, about 4 operations per byte read, far below
 // the card's ~295 bf16 operations per byte.  So it is bound by bytes:
 // about 21 MB of K/V a step when every slot is visible, ~6 us at
-// 3.35 TB/s.  At that size launch overhead and occupancy, not bandwidth,
-// set this simple version's time.
+// 3.35 TB/s.  At that size the loads must be wide and many must be in
+// flight at once, with no phases that wait on each other in between.
 //
-// Design: one block per (kv head, batch row) holds the G query rows of
-// that group in shared memory as f32 and streams the K/V tiles of
-// [0, lengths[b]) through shared memory once for all G heads.  The Pallas
-// grid (B, KV, nL) visited every tile; the block stops after the last
-// visible one instead.  That gives the reference's result: a tile past
-// lengths[b] is fully masked, and in the reference it is a no-op once the
-// row's first visible key has set m (lengths >= 1 on the decode path).
-// lengths[b] <= 0 visits every tile with every score masked, which gives
-// the plain version's uniform average.  Per tile: (1) scores for the
-// (G, BL) pairs, one pair per thread, into an f32 tile; (2) one warp per
-// query head updates m and l online and turns the row into p; (3) each
-// thread owns (g, d) outputs of the f32 accumulator, held in shared
-// memory so that G needs no template parameter.  Templated over hd in
-// {16, 32, 64, 128, 256} and float32 / bfloat16; above 48 KB of shared
-// memory the launch opts in with cudaFuncSetAttribute.  Tensor cores, TMA
-// and a split of L over blocks with a combine pass are later work.
+// Design: one block of 4 warps per (kv head, batch row) serves GT query
+// heads of that group (GT = 8, 4, 2 or 1, the largest that divides G; a
+// group of G > 8 heads takes G / GT blocks).  Nothing is staged in shared
+// memory: each lane loads 16 bytes of a K row and of a V row straight
+// from the strided cache into registers (LPR = hd * size / 16 lanes to a
+// row, 16 lanes for hd 128 in bf16), dots them with the GT query rows it
+// holds in f32 registers and sums the row's dot products with shuffles
+// inside its lane group.  The visible slots [0, lengths[b]) are split
+// across the warps' lane groups ("slots" of the block, 8 at hd 128 in
+// bf16): slot w takes rows w, w + 8, ..., U = 4 of them with their loads
+// in flight together (2 where the registers of GT = 8 leave no room).
+// Each slot keeps its own (m, l, acc) per head in registers and updates
+// them online; at the end the slots of a warp merge by shuffles and the
+// warps merge in shared memory, the log-sum-exp merge a split-L combine
+// pass would do.  At 128 registers a thread four blocks share an SM, so
+// the generate shape's B * KV = 512 blocks run in one wave on 132 SMs
+// (blocks of 8 warps, two an SM, were slower there), and L is not
+// split over blocks; at long contexts and small batches (B * KV well
+// under 4 * 132) a split of L would be needed.  The Pallas grid (B, KV,
+// nL) visited every tile; the block stops after lengths[b] instead.  That
+// gives the reference's result: a slot past lengths[b] is masked, and in
+// the reference adds p = 0 once the row's first visible key has set m
+// (lengths >= 1 on the decode path).  lengths[b] <= 0 visits every slot
+// with every score masked, which gives the plain version's uniform
+// average.  Templated over hd in {16, 32, 64, 128, 256}, float32 /
+// bfloat16 and GT; the merge takes at most 33 KB of shared memory (GT = 8
+// at hd 256).
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BL = 64;  // cache slots per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 
-template <typename T, int HD>
-struct Smem {
-  // row stride in elements; the pad keeps lanes that read different rows
-  // of the same column on distinct banks
-  static constexpr int LD = HD + (sizeof(T) == 4 ? 1 : 2);
-  static size_t bytes(int G) {
-    return static_cast<size_t>(2 * BL) * LD * sizeof(T) +  // K, V tiles
-           (static_cast<size_t>(2) * G * HD +               // q, acc
-            static_cast<size_t>(G) * BL + 3 * G) *          // p; m, l, corr
-               sizeof(float);
-  }
+template <typename T, int HD, int GT>
+struct Dec {
+  static constexpr int VEC = 16 / sizeof(T);  // elements in 16 bytes
+  static constexpr int CHUNKS = HD / VEC;     // 16-byte chunks in a row
+  static constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32;  // lanes a row
+  static constexpr int CPL = CHUNKS / LPR;    // chunks a lane
+  static constexpr int RPW = 32 / LPR;        // rows a warp takes at once
+  static constexpr int NW = WARPS * RPW;      // row slots of the block
+  static constexpr int U = GT * CPL >= 8 ? 2 : 4;  // rows a slot loads at once
+  // the merge: acc (WARPS, GT, HD), then m and l (WARPS, GT)
+  static constexpr size_t bytes = WARPS * GT * (HD + 2) * sizeof(float);
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// 16 bytes as floats
+__device__ __forceinline__ void unpack(const uint4& w, float (&f)[4]) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float (&f)[8]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 pairs, low half first
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int HD, int GT>
+__global__ void __launch_bounds__(THREADS, GT >= 8 ? 2 : 4)
     decode_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ lengths,
                       T* __restrict__ o, int H, int G, int L, long long sb,
                       long long sc, long long sl, float scale) {
-  constexpr int LD = Smem<T, HD>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + BL * LD;
-  float* qs = reinterpret_cast<float*>(vs + BL * LD);
-  float* acc = qs + G * HD;
-  float* ps = acc + G * HD;
-  float* m_s = ps + G * BL;
-  float* l_s = m_s + G;
-  float* corr_s = l_s + G;
+  using C = Dec<T, HD, GT>;
+  constexpr int VEC = C::VEC, LPR = C::LPR, CPL = C::CPL, RPW = C::RPW;
+  constexpr int NW = C::NW, U = C::U;
+  extern __shared__ __align__(16) float red[];
+  float* m_s = red + WARPS * GT * HD;
+  float* l_s = m_s + WARPS * GT;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kvh = blockIdx.x;
+  const int rg = lane / LPR, li = lane % LPR;  // lane group, lane in it
+  const int per_kv = G / GT;
+  const int kvh = blockIdx.x / per_kv;
+  const int h0 = kvh * G + (blockIdx.x % per_kv) * GT;
   const int b = blockIdx.y;
   const int len = lengths[b];
   // visible slots; a row with none averages all L, as the plain version
   const int n_rows = len <= 0 ? L : min(len, L);
-  const T* qg = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
+  const T* qg = q + (static_cast<size_t>(b) * H + h0) * HD;
   const T* kg = k + b * sb + kvh * sc;
   const T* vg = v + b * sb + kvh * sc;
-  T* og = o + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
+  T* og = o + (static_cast<size_t>(b) * H + h0) * HD;
 
-  for (int e = tid; e < G * HD; e += THREADS) {
-    qs[e] = repro::to_f32(qg[e]);
-    acc[e] = 0.f;
+  // the lane's columns: chunk li + c * LPR of each row, c < CPL
+  float qf[GT][CPL][VEC], acc[GT][CPL][VEC], m_i[GT], l_i[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m_i[g] = NEG_INF;
+    l_i[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[g][c][e] = repro::to_f32(qg[g * HD + (li + c * LPR) * VEC + e]);
+        acc[g][c][e] = 0.f;
+      }
   }
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
 
-  for (int t0 = 0; t0 < n_rows; t0 += BL) {
-    const int rows = min(BL, n_rows - t0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BL * HD; e += THREADS) {
-      const int r = e / HD, c = e % HD;
-      const bool in = r < rows;
-      const long long off = (t0 + r) * sl + c;
-      ks[r * LD + c] = in ? kg[off] : repro::from_f32<T>(0.f);
-      vs[r * LD + c] = in ? vg[off] : repro::from_f32<T>(0.f);
+  // warp-uniform loop: all lanes take part in the shuffles
+  for (int base = warp * RPW; base < n_rows; base += NW * U) {
+    uint4 kr[U][CPL], vr[U][CPL];
+    bool in[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = base + rg + u * NW;
+      in[u] = r < n_rows;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const long long off = r * sl + (li + c * LPR) * VEC;
+        kr[u][c] = in[u] ? *reinterpret_cast<const uint4*>(kg + off)
+                         : make_uint4(0, 0, 0, 0);
+        vr[u][c] = in[u] ? *reinterpret_cast<const uint4*>(vg + off)
+                         : make_uint4(0, 0, 0, 0);
+      }
     }
-    __syncthreads();
-
-    // (1) scores: pair (g, j) per thread; lanes of a warp share g
-    for (int e = tid; e < G * BL; e += THREADS) {
-      const int g = e / BL, j = e % BL;
-      const float* qrow = qs + g * HD;
-      const T* krow = ks + j * LD;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) s = fmaf(qrow[d], repro::to_f32(krow[d]), s);
-      ps[e] = (j < rows && t0 + j < len) ? s * scale : NEG_INF;
+    float s[U][GT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g) s[u][g] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float kf[VEC];
+        unpack(kr[u][c], kf);
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            s[u][g] = fmaf(qf[g][c][e], kf[e], s[u][g]);
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+#pragma unroll
+        for (int off = LPR / 2; off; off >>= 1)
+          s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+        s[u][g] = base + rg + u * NW < len ? s[u][g] * scale : NEG_INF;
+      }
     }
-    __syncthreads();
-
-    // (2) online softmax, one warp per query head
-    for (int g = warp; g < G; g += WARPS) {
-      float* prow = ps + g * BL;
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
       float mx = NEG_INF;
-      for (int j = lane; j < BL; j += 32) mx = fmaxf(mx, prow[j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BL; j += 32) {
-        // slots past the tile's rows are no cache entries at all
-        const float p = j < rows ? expf(prow[j] - m_new) : 0.f;
-        prow[j] = p;
-        sum += p;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (in[u]) mx = fmaxf(mx, s[u][g]);
+      const float m_new = fmaxf(m_i[g], mx);
+      const float corr = expf(m_i[g] - m_new);
+      m_i[g] = m_new;
+      float p[U], sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // slots past n_rows are no cache entries at all
+        p[u] = in[u] ? expf(s[u][g] - m_new) : 0.f;
+        sum += p[u];
       }
-      sum = repro::warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
+      l_i[g] = l_i[g] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][c][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          float vf[VEC];
+          unpack(vr[u][c], vf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[g][c][e] = fmaf(p[u], vf[e], acc[g][c][e]);
+        }
     }
-    __syncthreads();
+  }
 
-    // (3) acc[g, d] = acc * corr + sum_j p[g, j] v[j, d]
-    for (int e = tid; e < G * HD; e += THREADS) {
-      const int g = e / HD, d = e % HD;
-      const float* prow = ps + g * BL;
-      float a = acc[e] * corr_s[g];
-      for (int j = 0; j < rows; ++j)
-        a = fmaf(prow[j], repro::to_f32(vs[j * LD + d]), a);
-      acc[e] = a;
+  // merge the warp's lane groups, then the warps
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m_i[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l_i[g], off);
+      const float mm = fmaxf(m_i[g], mo);
+      const float f = expf(m_i[g] - mm), fo = expf(mo - mm);
+      l_i[g] = l_i[g] * f + lo * fo;
+      m_i[g] = mm;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][c][e] = acc[g][c][e] * f +
+                         __shfl_xor_sync(0xffffffffu, acc[g][c][e], off) * fo;
+    }
+  }
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          red[(warp * GT + g) * HD + (li + c * LPR) * VEC + e] = acc[g][c][e];
+      if (li == 0) {
+        m_s[warp * GT + g] = m_i[g];
+        l_s[warp * GT + g] = l_i[g];
+      }
     }
   }
   __syncthreads();
-
-  for (int e = tid; e < G * HD; e += THREADS)
-    og[e] = repro::from_f32<T>(acc[e] / fmaxf(l_s[e / HD], 1e-30f));
+  for (int e = tid; e < GT * HD; e += THREADS) {
+    const int g = e / HD, d = e % HD;
+    float mm = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, m_s[w * GT + g]);
+    float tot = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(m_s[w * GT + g] - mm);
+      tot = fmaf(red[(w * GT + g) * HD + d], f, tot);
+      lsum = fmaf(l_s[w * GT + g], f, lsum);
+    }
+    og[e] = repro::from_f32<T>(tot / fmaxf(lsum, 1e-30f));
+  }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* o, int B, int H, int KV, int L,
                    long long sb, long long sc, long long sl, float scale,
                    cudaStream_t stream) {
-  auto kern = decode_fwd_kernel<T, HD>;
+  constexpr size_t smem = Dec<T, HD, GT>::bytes;
+  static_assert(smem <= 48 * 1024, "the merge needs no opt-in");
   const int G = H / KV;
-  const size_t smem = Smem<T, HD>::bytes(G);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(KV, B);
-  kern<<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(KV * (G / GT), B);
+  decode_fwd_kernel<T, HD, GT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), H, G, L, sb, sc,
       sl, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_g(const void* q, const void* k, const void* v,
+                       const int* lengths, void* o, int B, int H, int KV,
+                       int L, long long sb, long long sc, long long sl,
+                       float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  if (G % 8 == 0)
+    return launch<T, HD, 8>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+  if (G % 4 == 0)
+    return launch<T, HD, 4>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+  if (G % 2 == 0)
+    return launch<T, HD, 2>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+  return launch<T, HD, 1>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
 }
 
 template <typename T>
@@ -194,15 +287,15 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         float scale, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+      return dispatch_g<T, 16>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+      return dispatch_g<T, 32>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+      return dispatch_g<T, 64>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+      return dispatch_g<T, 128>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
+      return dispatch_g<T, 256>(q, k, v, lengths, o, B, H, KV, L, sb, sc, sl, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -212,8 +305,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 // q (B, H, hd) and o (B, H, hd) contiguous; k and v share the element
 // strides sb (batch), sc (KV head) and sl (cache slot), with hd at stride
-// 1; lengths (B,) int32 on the card; all float32 (dtype 0) or bfloat16
-// (dtype 1).
+// 1, 16-byte aligned rows (pointers on 16 bytes, strides multiples of 16
+// bytes); lengths (B,) int32 on the card; all float32 (dtype 0) or
+// bfloat16 (dtype 1).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* o, int B, int H, int KV, int L,

@@ -29,11 +29,12 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+LLP = ctypes.POINTER(LL)
 # C entry point -> argument types; every entry point returns cudaError_t
 SIGNATURES = {
     "kmeans_assign": [P, P, P, P, P, I, I, I, I, P],
     "simvote_segmented": [P, P, P, P, P, P, P, P, I, I, I, P],
-    "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, LLP, P],
     "decode_attention_fwd": [P, P, P, P, P, I, I, I, I, I, LL, LL, LL, I, P],
 }
 
@@ -124,15 +125,31 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {text} ({err})")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """A kernel takes CUDA tensors on one device, contiguous."""
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 contiguous: bool = True) -> None:
+    """A kernel takes CUDA tensors on one device, contiguous unless the
+    kernel takes strides (``contiguous=False``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one device, "
                              f"got {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def require_vector_access(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel that moves 16 bytes at a time needs each row (the last
+    dimension, at stride 1) to start on a 16-byte boundary."""
+    for t in tensors:
+        step = 16 // t.element_size()
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                any(s % step for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                    if n > 1):
+            raise ValueError(
+                f"{name}: expected 16-byte aligned rows with the last "
+                f"dimension at stride 1, got strides {t.stride()} at "
+                f"offset {t.data_ptr() % 16} bytes from 16")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -18,15 +18,11 @@ def decode_attention_cuda(q, k, v, lengths):
     """q (B,H,hd); k/v (B,KV,L,hd); lengths (B,) on the card -> (B,H,hd).
 
     k and v may be strided views (the model's (B,L,KV,hd) cache permuted)
-    as long as they share strides and hd has stride 1; q is made
-    contiguous.
+    as long as they share strides, hd has stride 1 and each row starts on
+    16 bytes; q is made contiguous.
     """
     name = "decode_attention_cuda"
-    dev = q.device
-    for t in (q, k, v, lengths):
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name}: expected CUDA tensors on one device, "
-                             f"got {t.device}")
+    build.require_cuda(name, q, k, v, lengths, contiguous=False)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -41,6 +37,7 @@ def decode_attention_cuda(q, k, v, lengths):
     if k.stride() != v.stride() or k.stride(3) != 1:
         raise ValueError(f"{name}: k and v must share strides with hd at "
                          f"stride 1, got {k.stride()} and {v.stride()}")
+    build.require_vector_access(name, k, v)  # 16-byte loads of K/V rows
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -50,7 +47,7 @@ def decode_attention_cuda(q, k, v, lengths):
     err = build.library().decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, H, KV, L, hd, sb, sc, sl, DTYPE_CODES[q.dtype],
-        build.stream_ptr(dev))
+        build.stream_ptr(q.device))
     build.check(err, "decode_attention_fwd")
     decode_attention_cuda.launches += 1
     return out

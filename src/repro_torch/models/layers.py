@@ -147,9 +147,11 @@ def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
         q = apply_rope(q.reshape(B, S, -1, hd), positions,
                        cfg.rope_theta).reshape(q.shape)
         k = apply_rope(k, positions, cfg.rope_theta)
-    qh = q.reshape(B, S, -1, hd).transpose(1, 2).contiguous()  # (B,H,S,hd)
-    kh = k.transpose(1, 2).contiguous()                         # (B,KV,S,hd)
-    vh = v.transpose(1, 2).contiguous()
+    # (B,H,S,hd) and (B,KV,S,hd) views of the (B,S,heads,hd) projections:
+    # the kernel takes their strides, and its output lies as (B,S,H,hd),
+    # so neither side copies
+    qh = q.reshape(B, S, -1, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     impl = "ref" if cfg.attn_impl == "flash-ref" else "auto"
     out = flash_attention(qh, kh, vh, causal=causal, window=window,
                           impl=impl)

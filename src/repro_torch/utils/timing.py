@@ -100,3 +100,28 @@ def device_ms(fn, arg_sets, *, calls: int = 20, reps: int = 5):
         ahead = ahead and host_ms < s0.elapsed_time(s1)
         ms.append(a.elapsed_time(b) / calls)
     return sorted(ms)[reps // 2], ahead
+
+
+def profiler_ms(fn, arg_sets, kernel: str, *, calls: int = 20) -> float:
+    """Median device milliseconds of one launch of the kernel whose name
+    contains ``kernel``, read from torch.profiler over ``calls`` calls of
+    fn cycling through ``arg_sets``.  Host work inside fn (copies, a
+    synchronise) does not count, as it does in ``device_ms``.  Needs a
+    CUDA device; raises if the trace holds no launch of that kernel.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name)
+    if not us:
+        raise RuntimeError(f"the profiler recorded no launch of {kernel}")
+    return us[len(us) // 2] / 1e3

@@ -364,7 +364,8 @@ def test_generate_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KV,L,hd", DECODE_CASES + [
     (2, 4, 2, 40, 16), (3, 4, 1, 130, 32), (2, 16, 8, 200, 256),
-    (64, 32, 8, 128, 128), (1, 2, 2, 1, 64)])
+    (64, 32, 8, 128, 128), (1, 2, 2, 1, 64), (2, 16, 2, 100, 128),
+    (3, 8, 1, 77, 64), (2, 16, 2, 40, 256), (2, 24, 2, 50, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["contiguous", "cache_view"])
 def test_cuda_decode_attention_matches_plain(cuda, B, H, KV, L, hd, dtype,
@@ -382,6 +383,27 @@ def test_cuda_decode_attention_matches_plain(cuda, B, H, KV, L, hd, dtype,
     assert decode_attention_cuda.launches == before + 1
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(),
+                               decode_attention_ref(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", [(4, 4), (32, 8), (16, 2)])  # G 1, 4, 8
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_attention_ragged_lengths(cuda, H, KV, hd, dtype):
+    """Lengths of 1 and L, and lengths that end inside a warp's share of
+    the slots, in the model's permuted cache view."""
+    lens = [1, 128, 17, 33, 47, 63, 65, 100, 127, 2]
+    B, L = len(lens), 128
+    q, k, v, _ = _decode_inputs(B, H, KV, L, hd, seed=5)
+    q, k, v = (torch.from_numpy(a).to(cuda, TORCH_DTYPES[dtype])
+               for a in (q, k, v))
+    k, v = (t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+            for t in (k, v))
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(decode_attention_cuda(q, k, v, lens).float(),
                                decode_attention_ref(q, k, v, lens).float(),
                                rtol=tol, atol=tol)
 

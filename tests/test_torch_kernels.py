@@ -210,6 +210,35 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
         call()
 
 
+def test_flash_wrapper_refuses_a_strided_head_dim():
+    """hd must be at stride 1: refused before the device check and before
+    anything launches."""
+    q = torch.zeros(1, 2, 4, 32)[..., ::2]  # hd 16 at stride 2
+    k = torch.zeros(1, 1, 4, 16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="stride 1"):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="stride 1"):
+        flash_attention_cuda(k, q[:, :1], k)
+    assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_access_check_takes_aligned_views(dtype):
+    """The 16-byte kernels take the model's views and refuse rows that do
+    not start on 16 bytes."""
+    from repro_torch.kernels import build
+    seq_major = torch.zeros(2, 5, 4, 32, dtype=dtype).transpose(1, 2)
+    cache_view = torch.zeros(2, 7, 4, 16, dtype=dtype).permute(0, 2, 1, 3)
+    build.require_vector_access("k", seq_major, cache_view,
+                                seq_major[:1, :1])
+    wide = torch.zeros(2, 4, 40, dtype=dtype)
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_vector_access("k", wide[..., 1:33])  # rows off 16 B
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_vector_access("k", wide[..., ::2])
+
+
 def test_flash_ops_rejects_unknown_impl():
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(ValueError, match="impl"):
@@ -259,17 +288,53 @@ def test_cuda_simvote_segmented_matches_plain(cuda, counts, ms):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,KV,S,hd", FLASH_CASES + [
+# the served record shape (one oracle batch of llama3.1-8b) at both
+# buckets, and G = 8 and 16 beside the 1, 2 and 4 of the cases above (at
+# G = 16 a q tile is 8 positions and a warp's 16 rows span two heads)
+FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 4, 2, 64, 16), (1, 4, 2, 96, 32), (2, 8, 2, 128, 256),
-    (4, 32, 8, 64, 128), (1, 2, 1, 200, 64)])
+    (4, 32, 8, 64, 128), (1, 2, 1, 200, 64), (2, 16, 2, 64, 64),
+    (1, 8, 1, 96, 128), (1, 16, 1, 72, 64), (64, 32, 8, 32, 128),
+    (64, 32, 8, 64, 128)]
+
+
+def _seq_major(a: torch.Tensor) -> torch.Tensor:
+    """The same values as a (B, heads, S, hd) view of a (B, S, heads, hd)
+    tensor, as ``layers.attention_flash`` passes its projections."""
+    return a.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd", FLASH_CUDA_CASES)
 @pytest.mark.parametrize("window", [None, 64, 17])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["contiguous", "seq_major"])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
-                                            dtype):
+                                            dtype, layout):
     q, k, v = (_torch(a, dtype).to(cuda) for a in _qkv(B, H, KV, S, hd))
+    if layout == "seq_major":
+        q, k, v = (_seq_major(t) for t in (q, k, v))
+        assert not q.is_contiguous() and q.stride(-1) == 1
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    # the output lies as (B, S, H, hd): the model's reshape is a view
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        got.float(),
+        flash_attention_ref(q, k, v, causal=True, window=window).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_non_causal_matches_plain(cuda, dtype):
+    q, k, v = (_seq_major(_torch(a, dtype).to(cuda))
+               for a in _qkv(2, 8, 2, 80, 64))
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(
-        flash_attention_cuda(q, k, v, causal=True, window=window).float(),
-        flash_attention_ref(q, k, v, causal=True, window=window).float(),
+        flash_attention_cuda(q, k, v, causal=False).float(),
+        flash_attention_ref(q, k, v, causal=False).float(),
         rtol=tol, atol=tol)

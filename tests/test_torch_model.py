@@ -131,6 +131,32 @@ def test_attention_routing_matches_reference(S, flash, monkeypatch):
     assert bool(calls) == flash
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attention_flash_hands_the_kernel_views(arch, monkeypatch):
+    """q, k and v reach K4 as (B, heads, S, hd) views of the (B, S, heads,
+    hd) projections, not copies, and an output laid out as (B, S, H, hd),
+    as the kernel writes it, gives the reference's logits."""
+    jcfg, jparams, tcfg, tparams = _pair(arch, "flash")
+    seen = []
+    real = flash_ops.flash_attention
+
+    def kernel_like(q, k, v, **kw):
+        for t in (q, k, v):
+            assert t.stride(-1) == 1 and not t.is_contiguous()
+            assert t.transpose(1, 2).is_contiguous()
+        seen.append(q.shape)
+        out = real(q, k, v, **kw)
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+
+    monkeypatch.setattr(flash_ops, "flash_attention", kernel_like)
+    tokens = np.random.default_rng(3).integers(0, 512, (2, 64))
+    ref, _ = jlm.forward(jcfg, jparams, jnp.asarray(tokens, jnp.int32))
+    got, _ = lm.forward(tcfg, tparams, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
+    assert len(seen) == tcfg.n_layers
+
+
 def test_init_params_matches_reference_layout():
     for arch in ARCHS:
         cfg = smoke_config(arch)
