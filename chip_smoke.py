@@ -8,14 +8,16 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 1. build    nvcc builds every kernel from src/repro_torch/csrc into build/.
 2. kernels  each CUDA kernel (K1 k-means assignment, K2/K3 SimVote, K4
             flash prefill, K5 flash decoding) against its plain PyTorch
-            version on the card at the main path's shapes, with its time,
+            version on the card at the main path's shapes (K1 also at the
+            model path's n 4,096, at K 33 and at D 1,023; K3 also at M
+            300), with its time,
             the plain version's time, a library yardstick where one exists
             and the card's least time for the same work (its bound).  The
             times are device time a call, 20 calls between one event pair
             with the host ahead of the card (utils.timing.device_ms); one
             kernel call alone (cuda_event_ms) and the profiler's device
-            time a launch (utils.timing.profiler_ms, which leaves out the
-            host work of the K2/K3 wrappers) are logged beside them.  K4
+            time a launch (utils.timing.profiler_ms) are logged beside
+            them, and whether the host got ahead of the card.  K4
             and K5 take their inputs as the model passes them (strided
             views) and are timed over four rotated input sets, more bytes
             than the 50 MB L2 holds.
@@ -51,6 +53,7 @@ limit; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -120,7 +123,10 @@ def main() -> int:
     build.library()
     log(f"[build] kernels built and loaded in {monotonic() - t0:.1f} s")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        entry = re.search(r"entry function '\w*?([a-z_]+_kernel\w*?)E+vP", line)
+        if entry:  # the kernel and its template arguments, mangled
+            log("[build] entry", entry.group(1))
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             log("[build]", line.strip())
 
     counters = {"kmeans_assign": assign_clusters_cuda,
@@ -162,7 +168,7 @@ def main() -> int:
         record[name].update(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                             bound_ms=bnd[0], bound_by=bnd[1],
                             library_ms=library_ms, call_ms=call_ms,
-                            profiler_ms=prof_ms)
+                            profiler_ms=prof_ms, host_ahead=k_ahead)
         log(f"[kernels] {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
             f"(one call alone {call_ms:.4f}, profiler a launch "
             f"{prof_ms:.4f}), plain {plain_ms:.4f} ms, library {library_ms} "
@@ -197,6 +203,28 @@ def main() -> int:
          assign_clusters_cuda, assign_clusters_ref, [(x, cents)],
          "assign_kernel")
 
+    # K1 also at the model path's shape (n 4,096, K 4), at K 33 (three
+    # passes over K) and at D 1,023 (the scalar instantiation), on rows of
+    # the same table with centroids made the same way
+    rng1 = np.random.default_rng(1)
+    for n1, d_1, k1 in ((N_MODEL, DIM, 4), (N_DATA, DIM, 33),
+                        (N_MODEL, DIM - 1, 4)):
+        x1 = x[:n1, :d_1].contiguous()
+        c1 = torch.stack([x1[torch.from_numpy(rng1.choice(n1, 500)).to(dev)]
+                          .mean(dim=0) for _ in range(k1)])
+        got_a, got_d = assign_clusters_cuda(x1, c1)
+        want_a, want_d = assign_clusters_ref(x1, c1)
+        torch.cuda.synchronize()
+        agree = (got_a == want_a).float().mean().item()
+        if agree < 0.999:
+            raise AssertionError(f"K1 at n {n1}, D {d_1}, K {k1}: "
+                                 f"assignments agree on {agree:.5f} < 0.999")
+        torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
+        log(f"[kernels] kmeans_assign n={n1} D={d_1} K={k1}: assignments "
+            f"agree on {agree:.5f}, distances within 1e-5 "
+            f"(max abs err {(got_d - want_d).abs().max().item():.3g})")
+    del x1, c1, got_a, got_d, want_a, want_d
+
     # K3 at a round-0 shape: the four clusters of K1's assignment, 101
     # samples each (min_sample), the rest scored in one launch
     assign = a1.cpu().numpy()
@@ -221,6 +249,28 @@ def main() -> int:
                2 * nr * m * DIM + 2 * (nr + c * m) * DIM, "float32"),
          simvote_scores_segmented_cuda, simvote_scores_segmented_ref,
          [seg_args], "simvote_kernel")
+
+    # K3 also at M 300 (three sample tiles): the same clusters, 300 samples
+    # each but the last, which has 250 and -1 labels after them
+    ms3 = [300] * (len(groups) - 1) + [250]
+    samples3 = [rng1.choice(g, mm, replace=False) for g, mm in zip(groups, ms3)]
+    rests3 = [np.setdiff1d(g, s) for g, s in zip(groups, samples3)]
+    s3 = np.zeros((len(groups), 300, DIM), np.float32)
+    y3 = -np.ones((len(groups), 300), np.float32)
+    for i, smp in enumerate(samples3):
+        s3[i, :len(smp)] = ds.embeddings[smp]
+        y3[i, :len(smp)] = truth[smp]
+    seg3 = (torch.from_numpy(ds.embeddings[np.concatenate(rests3)]).to(dev),
+            np.array([len(r) for r in rests3]), torch.from_numpy(s3).to(dev),
+            torch.from_numpy(y3).to(dev),
+            np.array([default_bandwidth(ds.embeddings[s]) for s in samples3]))
+    r1 = simvote_scores_segmented_cuda(*seg3)
+    r2 = simvote_scores_segmented_ref(*seg3)
+    torch.testing.assert_close(r1, r2, rtol=1e-5, atol=1e-6)
+    log(f"[kernels] simvote_scores_segmented M=300 (samples {ms3}, rows "
+        f"{seg3[1].tolist()}): within rtol 1e-5 atol 1e-6 (max abs err "
+        f"{(r1 - r2).abs().max().item():.3g})")
+    del seg3
 
     # K2 at a sequential-executor shape: one of those clusters alone
     xk2 = xs[:int(counts[0])]

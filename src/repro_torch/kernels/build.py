@@ -32,8 +32,8 @@ LL = ctypes.c_longlong
 LLP = ctypes.POINTER(LL)
 # C entry point -> argument types; every entry point returns cudaError_t
 SIGNATURES = {
-    "kmeans_assign": [P, P, P, P, P, I, I, I, I, P],
-    "simvote_segmented": [P, P, P, P, P, P, P, P, I, I, I, P],
+    "kmeans_assign": [P, P, P, P, I, I, I, I, I, P],
+    "simvote_segmented": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, LLP, P],
     "decode_attention_fwd": [P, P, P, P, P, I, I, I, I, I, LL, LL, LL, I, P],
 }
@@ -138,14 +138,31 @@ def require_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: expected contiguous tensors")
 
 
-def require_vector_access(name: str, *tensors: torch.Tensor) -> None:
-    """A kernel that moves 16 bytes at a time needs each row (the last
-    dimension, at stride 1) to start on a 16-byte boundary."""
+def vector_access(*tensors: torch.Tensor) -> bool:
+    """Whether a kernel that moves 16 bytes at a time can take every
+    tensor: each row (the last dimension, at stride 1) starts on a 16-byte
+    boundary."""
     for t in tensors:
         step = 16 // t.element_size()
         if t.stride(-1) != 1 or t.data_ptr() % 16 or \
                 any(s % step for s, n in zip(t.stride()[:-1], t.shape[:-1])
                     if n > 1):
+            return False
+    return True
+
+
+def vector_rows(*tensors: torch.Tensor) -> bool:
+    """Whether every row of every tensor is a whole number of 16-byte
+    loads that starts on 16 bytes (``vector_access``, and the last
+    dimension a multiple of 16 bytes' elements)."""
+    return vector_access(*tensors) and all(
+        t.shape[-1] % (16 // t.element_size()) == 0 for t in tensors)
+
+
+def require_vector_access(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless ``vector_access`` holds for every tensor."""
+    for t in tensors:
+        if not vector_access(t):
             raise ValueError(
                 f"{name}: expected 16-byte aligned rows with the last "
                 f"dimension at stride 1, got strides {t.stride()} at "
