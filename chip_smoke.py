@@ -39,17 +39,44 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             the kernel and plain-attention streams agree, decode tokens/s
             and, from the engine_tick spans less one prefill timed by hand,
             ms per decode step and the prefill share.
+6. session  the declarative entry point, Session -> plan -> collect, on the
+            phase-3 table: RV-Q1 AND NOT RV-Q2 (SyntheticOracles, flip
+            0.02) under ExecutionPolicy(method="csv-sim") with its
+            explain(), checked node by node (each node passes at most what
+            it took in, takes in what the nodes before it left, and
+            decides each live tuple once, memo hits counted by the
+            oracle); each leaf alone; the same query in a fresh session
+            (equal mask, calls and node_log); a second collect in the first session (0 oracle
+            calls, the same mask); shards=4 against shards=1 (equal masks,
+            calls and cluster_log).  Then a semantic join of two 400-row
+            tables (160,000 pairs, SimVote blocks at D 2 x 1024, accuracy
+            >= 0.9) and its repeat under torch.profiler (the same pair
+            mask; device busy time and idle share), a Session(engine=...)
+            query with a ModelOracle leaf on
+            the phase-4 table and engine, and distributed_kmeans_step on a
+            one-rank NCCL group against one Lloyd step from K1's
+            assignment (1e-5).
 
-Each kernel wrapper counts its launches.  There are four main-path runs:
-the round executor, the sequential executor, the model path and generate.
-The counts are set to 0 just before each and read just after it, and each
-run must launch its own kernels and no other (round: K1, K3; sequential:
-K1, K2; model: K1, K3 and K4 = 32 x the engine's batches; generate: K4 =
-32 x batches and K5 = 32 x batches x 32 new tokens).  Checks against plain
-versions run outside those windows.  In the kernels' JSON record,
-"launches" is the sum over the four runs and "launches_by_path" splits it.
-The second-to-last lines are that record and the card's name and power
-limit; the last line is {"ok": true, "device": {...}}.
+Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
+blocks, M 101, D 2,048) with its time and bound.
+
+Each kernel wrapper counts its launches.  There are thirteen main-path
+runs: the round executor, the sequential executor, the model path,
+generate, and phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
+alone), session_repeat, replay, shards, join, model_leaf and
+kmeans_step.  The counts are set to 0 just before each and read just
+after it, and each run must launch its own kernels and no other (round:
+K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
+batches; generate: K4 = 32 x batches and K5 = 32 x batches x 32 new
+tokens; session, the leaves alone, session_repeat, shards and join: K1,
+K3; replay: K3, and K1 where a node it runs again re-clusters;
+model_leaf: K1, K3 and K4 = 32 x batches; kmeans_step: K1).  Checks
+against plain versions and the join's profiled repeat run outside those
+windows.  In the kernels' JSON
+record, "launches" is the sum over the runs and "launches_by_path"
+splits it.  Before it come phase 6's numbers ({"session": ...}); the
+second-to-last lines are the kernels' record and the card's name and
+power limit; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -63,6 +90,7 @@ PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores, bf16 tens
 N_DATA, DIM, N_MODEL = 50_000, 1024, 4096
 N_GEN, MAX_NEW = 128, 32   # generate: prompts, new tokens (<= 64: no clamp)
 DECODE_LIMIT = 0.25        # teacher-forced decode logits, K5 vs plain
+N_JOIN = 400               # session phase: rows of each joined table
 
 
 def log(*args):
@@ -83,6 +111,336 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def join_tables(make_dataset):
+    """The session phase's two joined tables and their pair labels: a pair
+    holds when its rows' topics agree mod 2 (tests/test_plan_join.py)."""
+    left, right = (make_dataset("imdb_review", n=N_JOIN, dim=DIM, seed=s,
+                                n_topics=4) for s in (1, 2))
+    truth = (left.topics[:, None] % 2) == (right.topics[None, :] % 2)
+    return left, right, truth
+
+
+def join_round0(el, er, assign_l, assign_r, truth, rng):
+    """K3's inputs in round 0 of ``sem_join``: one block per cluster pair,
+    each block's 101 sampled pairs as its samples, its other pairs scored
+    at the pair width 2 x D."""
+    import numpy as np
+    from repro_torch.core import theory
+    from repro_torch.core.voting import default_bandwidth
+    rows, samples, labels = [], [], []
+    for cl in range(int(assign_l.max()) + 1):
+        for cr in range(int(assign_r.max()) + 1):
+            li, rj = np.nonzero(assign_l == cl)[0], np.nonzero(assign_r == cr)[0]
+            n = len(li) * len(rj)
+            if n == 0:
+                continue
+            pick = rng.choice(n, theory.choose_sample_size(n, 0.005, 101),
+                              replace=False)
+            rest = np.setdiff1d(np.arange(n), pick)
+            pair = lambda f: np.concatenate(  # noqa: E731
+                [el[li[f // len(rj)]], er[rj[f % len(rj)]]], axis=1)
+            rows.append(pair(rest))
+            samples.append(pair(pick))
+            labels.append(truth[li[pick // len(rj)], rj[pick % len(rj)]])
+    m = max(len(sm) for sm in samples)
+    s_pad = np.zeros((len(samples), m, rows[0].shape[1]), np.float32)
+    y_pad = -np.ones((len(samples), m), np.float32)
+    for i, (sm, lab) in enumerate(zip(samples, labels)):
+        s_pad[i, :len(sm)], y_pad[i, :len(sm)] = sm, lab
+    taus = np.array([default_bandwidth(sm) for sm in samples])
+    return (np.concatenate(rows), np.array([len(r) for r in rows]), s_pad,
+            y_pad, taus)
+
+
+def check_cascade(res, negated, n, log, tag):
+    """The node_log of an And cascade over Pred and Not(Pred) leaves: each
+    node passes at most what it took in, takes in the live set the nodes
+    before it leave, and decides each live tuple once (sampled, voted or
+    fallback; replayed tuples aside).  ``negated[name]`` says whether the
+    leaf sits under a Not.  Returns the node sizes for the log."""
+    live, sizes = n, []
+    for rec in res.node_log:
+        fr = rec.result
+        if rec.n_out > rec.n_in or rec.n_in != live:
+            raise AssertionError(f"[{tag}] node {rec.name}: in {rec.n_in}, "
+                                 f"out {rec.n_out}, live set {live}")
+        driven = rec.n_in - rec.n_replayed
+        asked = sum(rr.n_sampled for rr in fr.round_log) + fr.n_fallback
+        voted = sum(rr.n_voted for rr in fr.round_log)
+        if fr.n_llm_calls + fr.n_voted > driven or asked + voted != driven \
+                or fr.n_voted != voted:
+            raise AssertionError(
+                f"[{tag}] node {rec.name}: {fr.n_llm_calls} calls + "
+                f"{fr.n_voted} voted against {driven} live tuples not "
+                f"replayed ({asked} asked, {voted} voted in its rounds)")
+        sizes.append((rec.name, rec.n_in, rec.n_out, rec.n_llm_calls,
+                      rec.n_replayed, asked - fr.n_llm_calls))
+        live = rec.n_in - rec.n_out if negated[rec.name] else rec.n_out
+    log(f"[{tag}] node_log (name, in, out, calls, replayed, memo hits "
+        f"among the asked): {sizes}")
+    return sizes
+
+
+def phase_session(ds, mds, engine, tok, counted, by_path, log, smi,
+                  n_layers):
+    """Phase 6: the declarative entry point on the card.  Session -> plan ->
+    collect over the 50,000-row table (a cascade, each leaf alone, its
+    repeat in a fresh session, its memo replay, four shards), a semantic
+    join of two 400-row
+    tables with SimVote blocks at D 2 x 1024, a model-backed leaf, and one
+    distributed k-means step over a one-rank NCCL group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import ExecutionPolicy, Session
+    from repro_torch.core.clustering import distributed_kmeans_step
+    from repro_torch.core.oracle import ModelOracle, SyntheticOracle
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.kmeans.kernel import assign_clusters_cuda
+    from repro_torch.utils.timing import monotonic
+
+    out = {}
+    sim = ExecutionPolicy(method="csv-sim")
+    truth = ds.labels["RV-Q1"] & ~ds.labels["RV-Q2"]
+    negated = {"RV-Q1": False, "RV-Q2": True}
+
+    def oracles():
+        return (SyntheticOracle(ds.labels["RV-Q1"], flip_prob=0.02, seed=0),
+                SyntheticOracle(ds.labels["RV-Q2"], flip_prob=0.02, seed=1))
+
+    def cascade(policy, explain=False):
+        sess = Session(policy=policy)
+        t = sess.table(embeddings=ds.embeddings, name="reviews")
+        o1, o2 = oracles()
+        q = t.filter("RV-Q1", o1) & ~t.filter("RV-Q2", o2)
+        t0 = monotonic()
+        ex = q.explain() if explain else None
+        res = q.collect()
+        return q, (o1, o2), res, ex, monotonic() - t0
+
+    def same_run(a, b, what, shards=False):
+        keys = lambda r: [(n.name, n.n_in, n.n_out, n.n_llm_calls,  # noqa
+                           n.n_replayed) for n in r.node_log]
+        if not (a.mask == b.mask).all() or a.n_llm_calls != b.n_llm_calls \
+                or keys(a) != keys(b) or (shards and any(
+                    a.raw.results[k].cluster_log != b.raw.results[k].cluster_log
+                    for k in a.raw.results)):
+            raise AssertionError(f"{what}: masks, calls, node_log or "
+                                 "cluster_log differ")
+
+    def check_hits(sizes, deltas, tag):
+        """A node's tuples asked of its oracle but not paid for are memo
+        hits (pilot probes the driver sampled again): the oracle's count."""
+        for name, *_, hits in sizes:
+            if hits != deltas[name]:
+                raise AssertionError(f"[{tag}] node {name}: {hits} asked "
+                                     f"without a call, the oracle counted "
+                                     f"{deltas[name]} memo hits")
+
+    # ---- the cascade, with its explain
+    q, (o1, o2), res, ex, wall = counted("session", lambda: cascade(
+        sim, explain=True), {"kmeans_assign", "simvote_scores_segmented"})
+    log("[session] explain():\n" + ex.text)
+    acc = float((res.mask == truth).mean())
+    sizes = check_cascade(res, negated, len(truth), log, "session")
+    check_hits(sizes, {"RV-Q1": o1.stats.n_cached,
+                       "RV-Q2": o2.stats.n_cached}, "session")
+    log(f"[session] RV-Q1 AND NOT RV-Q2 over {len(truth)} tuples: "
+        f"{res.n_llm_calls} oracle calls ({res.pilot_calls} pilot), "
+        f"n_replayed {res.n_replayed}, order {res.order}, accuracy "
+        f"{acc:.4f}, wall {wall:.2f} s (explain + collect)  [{smi}]")
+    if acc < 0.9:
+        raise AssertionError(f"cascade accuracy {acc:.4f} < 0.9")
+    out["cascade"] = dict(calls=res.n_llm_calls, pilot=res.pilot_calls,
+                          order=res.order, wall_s=wall, accuracy=acc,
+                          nodes=sizes)
+
+    # ---- each leaf alone, in a fresh session, for the cascade's economics
+    def single(name):
+        sess1 = Session(policy=sim)
+        t1 = sess1.table(embeddings=ds.embeddings, name="reviews")
+        leaf = t1.filter(name, dict(zip(negated, oracles()))[name])
+        t0 = monotonic()
+        r = (~leaf if negated[name] else leaf).collect()
+        return r, monotonic() - t0
+
+    singles = {}
+    for name in negated:
+        r, w = counted(f"leaf_{name}", lambda: single(name),
+                       {"kmeans_assign", "simvote_scores_segmented"})
+        singles[name] = dict(calls=r.n_llm_calls, wall_s=w)
+    log(f"[session] the cascade: {res.n_llm_calls} calls, {wall:.2f} s; "
+        f"alone, each over all {len(truth)} tuples: "
+        + ", ".join(f"{'NOT ' * negated[k]}{k} {v['calls']} calls, "
+                    f"{v['wall_s']:.2f} s" for k, v in singles.items())
+        + f"  [{smi}]")
+    out["cascade"]["alone"] = singles
+
+    # ---- the same query in a fresh session, with fresh oracles
+    _, _, again, _, wall2 = counted("session_repeat", lambda: cascade(
+        sim), {"kmeans_assign", "simvote_scores_segmented"})
+    same_run(again, res, "a fresh session's repeat")
+    log(f"[session] repeat in a fresh session: equal mask, "
+        f"{again.n_llm_calls} calls and node_log; wall {wall2:.2f} s")
+    out["cascade"]["repeat_wall_s"] = wall2
+
+    # ---- its replay: the same query again in the first session.  A node
+    # that ran on the whole table replays from the session memo; one that
+    # ran on a subset runs its driver again, every oracle answer a memo hit
+    # (K3 votes, and K1 re-clusters where it re-clustered before)
+    rerun = [n for n in res.node_log if n.n_in < len(truth)]
+    before = [o.stats.clone() for o in (o1, o2)]
+    t0 = monotonic()
+    replay = counted("replay", q.collect, {"simvote_scores_segmented"}
+                     | ({"kmeans_assign"} if any(
+                         n.result.recluster_rounds for n in rerun)
+                        else set()))
+    wall_r = monotonic() - t0
+    deltas = [o.stats.delta(b) for o, b in zip((o1, o2), before)]
+    spent = sum(d.n_calls for d in deltas)
+    check_hits(check_cascade(replay, negated, len(truth), log, "replay"),
+               {"RV-Q1": deltas[0].n_cached, "RV-Q2": deltas[1].n_cached},
+               "replay")
+    log(f"[session] replay in the same session: {spent} oracle calls "
+        f"spent, n_replayed {replay.n_replayed}, wall {wall_r:.2f} s "
+        f"[{smi}]")
+    if spent or not (replay.mask == res.mask).all() or not replay.n_replayed:
+        raise AssertionError(f"the replay spent {spent} calls, replayed "
+                             f"{replay.n_replayed}, or changed the mask")
+    out["replay"] = dict(spent=spent, n_replayed=replay.n_replayed,
+                         wall_s=wall_r)
+
+    # ---- four shards a round against one, both fresh
+    _, _, sharded, _, wall4 = counted("shards", lambda: cascade(
+        sim.replace(shards=4)), {"kmeans_assign", "simvote_scores_segmented"})
+    same_run(sharded, again, "shards 4 against shards 1", shards=True)
+    shard_log = {n: [rr.shards for rr in fr.round_log]
+                 for n, fr in sharded.raw.results.items()}
+    log(f"[session] shards=4: equal masks, calls and cluster_log to "
+        f"shards=1; shards a round {shard_log}; wall {wall4:.2f} s against "
+        f"{wall2:.2f} s  [{smi}]")
+    if not any(k > 1 for v in shard_log.values() for k in v):
+        raise AssertionError("no round of the shards=4 run was split")
+    out["shards"] = dict(wall_s=wall4, wall_1_s=wall2, shards=shard_log)
+
+    # ---- a semantic join: SimVote blocks at D 2 x 1024
+    left, right, pair_truth = join_tables(make_dataset)
+    jsess = Session()
+    tl = jsess.table(embeddings=left.embeddings, name="left")
+    tr = jsess.table(embeddings=right.embeddings, name="right")
+    poracle = SyntheticOracle(pair_truth.ravel(), flip_prob=0.02, seed=3)
+    t0 = monotonic()
+    jres = counted("join", lambda: tl.join(tr, poracle, policy=sim).collect(),
+                   {"kmeans_assign", "simvote_scores_segmented"})
+    wall_j = monotonic() - t0
+    raw = jres.raw
+    n_pairs = pair_truth.size
+    asked = sum(rr.n_sampled for rr in raw.round_log) + raw.n_fallback
+    jacc = float((jres.pair_mask == pair_truth).mean())
+    log(f"[join] {N_JOIN} x {N_JOIN} = {n_pairs} pairs: {raw.n_llm_calls} "
+        f"oracle calls, {raw.n_voted} voted, {raw.n_fallback} fallback, "
+        f"{raw.refine_rounds} refine rounds (blocks, sampled, voted, "
+        f"undetermined a round: {[(r.n_blocks, r.n_sampled, r.n_voted, r.n_undetermined) for r in raw.round_log]}), "
+        f"accuracy {jacc:.4f}, wall {wall_j:.2f} s  [{smi}]")
+    if asked + raw.n_voted != n_pairs or raw.n_llm_calls > asked:
+        raise AssertionError(f"join: {asked} asked + {raw.n_voted} voted do "
+                             f"not cover {n_pairs} pairs")
+    if jacc < 0.9:
+        raise AssertionError(f"join accuracy {jacc:.4f} < 0.9")
+    # where the join's wall goes: the same join in a fresh session under
+    # torch.profiler; device busy time (kernels and copies) against wall
+    from torch.profiler import ProfilerActivity, profile
+    psess = Session()
+    ptl = psess.table(embeddings=left.embeddings, name="left")
+    ptr = psess.table(embeddings=right.embeddings, name="right")
+    p_oracle = SyntheticOracle(pair_truth.ravel(), flip_prob=0.02, seed=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = monotonic()
+        pres = ptl.join(ptr, p_oracle, policy=sim).collect()
+        torch.cuda.synchronize()
+        wall_p = monotonic() - t0
+    if not (pres.pair_mask == jres.pair_mask).all():
+        raise AssertionError("the profiled join's pair mask differs")
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {}
+    for e in dev_events:
+        kind = ("K3" if "simvote_kernel" in e.name
+                else "K1" if "assign_kernel" in e.name
+                else "copies" if "Memcpy" in e.name or "memcpy" in e.name
+                else "other")
+        busy[kind] = busy.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(busy.values())
+    idle = 1 - busy_ms / (wall_p * 1e3)
+    log(f"[join] profiled repeat: wall {wall_p:.2f} s, device busy "
+        f"{busy_ms:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in sorted(busy.items()))}), "
+        f"idle share {idle:.4f}  [{smi}]")
+    out["join"] = dict(calls=raw.n_llm_calls, voted=raw.n_voted,
+                       fallback=raw.n_fallback, accuracy=jacc,
+                       wall_s=wall_j, rounds=len(raw.round_log),
+                       profiled_wall_s=wall_p, busy_ms=busy, idle_share=idle)
+
+    # ---- a model-backed leaf: K4 through the served llama3.1-8b
+    msess = Session(engine=engine, policy=sim)
+    mt = msess.table(embeddings=mds.embeddings, name="model_reviews")
+    synth = SyntheticOracle(mds.labels["RV-Q1"], flip_prob=0.02, seed=0)
+    moracle = ModelOracle(engine, tok, "the review is positive", mds.texts)
+    batches = engine.stats["batches"]
+    t0 = monotonic()
+    mres = counted("model_leaf", lambda: (
+        mt.filter("RV-Q1", synth)
+        & mt.filter("the review is positive", moracle)).collect(),
+        {"kmeans_assign", "simvote_scores_segmented", "flash_attention"})
+    wall_m = monotonic() - t0
+    batches = engine.stats["batches"] - batches
+    msizes = check_cascade(mres, {"RV-Q1": False,
+                                  "the review is positive": False},
+                           len(mds.labels["RV-Q1"]), log, "model_leaf")
+    check_hits(msizes, {"RV-Q1": synth.stats.n_cached,
+                        "the review is positive": moracle.stats.n_cached},
+               "model_leaf")
+    k4 = by_path["model_leaf"]["flash_attention"]
+    log(f"[model_leaf] {mres.n_llm_calls} oracle calls ({mres.pilot_calls} "
+        f"pilot), order {mres.order}, {batches} engine batches, K4 "
+        f"launches {k4}, wall {wall_m:.2f} s  [{smi}]")
+    if k4 != n_layers * batches:
+        raise AssertionError(f"K4 launched {k4} times, not {n_layers} x "
+                             f"{batches} batches")
+    out["model_leaf"] = dict(calls=mres.n_llm_calls, batches=batches,
+                             wall_s=wall_m, nodes=msizes)
+
+    # ---- one distributed k-means step over a one-rank NCCL group
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = os.path.join(ROOT, "build", f"kmeans_step_store_{os.getpid()}")
+    x = torch.from_numpy(ds.embeddings).cuda()
+    cents = x[:: len(x) // 4][:4].contiguous() + 0.01
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # no network
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        step = counted("kmeans_step",
+                       lambda: distributed_kmeans_step(x, cents),
+                       {"kmeans_assign"})
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):  # the store removes its file itself
+            os.remove(store)
+    a, _ = assign_clusters_cuda(x, cents)
+    sums = torch.zeros((4, x.shape[1]), dtype=torch.float64, device=x.device
+                       ).index_add_(0, a.long(), x.double())
+    counts = torch.bincount(a.long(), minlength=4).double()
+    lloyd = torch.where(counts[:, None] > 0, sums / counts.clamp(min=1)[:, None],
+                        cents.double()).float()
+    err = (step - lloyd).abs().max().item()
+    log(f"[kmeans_step] distributed_kmeans_step on a one-rank NCCL group: "
+        f"max abs err {err:.3g} against one Lloyd step in f64 from K1's "
+        f"assignment (limit 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"distributed_kmeans_step off by {err}")
+    out["kmeans_step_err"] = err
+    return out
 def main() -> int:
     import numpy as np
     import torch
@@ -92,6 +450,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.clustering import kmeans
     from repro_torch.core.csv_filter import CSVConfig, semantic_filter
     from repro_torch.core.oracle import ModelOracle, SyntheticOracle
     from repro_torch.core.voting import default_bandwidth
@@ -284,6 +643,38 @@ def main() -> int:
                2 * n2 * m * DIM + 2 * (n2 + m) * DIM, "float32"),
          simvote_scores_cuda, simvote_scores_ref, [k2_args],
          "simvote_kernel")
+
+    # K3 at the join's width: round 0 of phase 6's join, two 400-row tables
+    # clustered by K1 into 4 x 4 blocks, 101 sampled pairs a block and the
+    # other pairs of the 160,000 (1.3 GB at D = 2 x 1024) in one launch
+    jl, jr, jtruth = join_tables(make_dataset)
+    jassign = [kmeans(0, t.embeddings, 4)[1].cpu().numpy() for t in (jl, jr)]
+    seg_np = join_round0(jl.embeddings, jr.embeddings, *jassign, jtruth, rng)
+    segj = (torch.from_numpy(seg_np[0]).to(dev), seg_np[1],
+            torch.from_numpy(seg_np[2]).to(dev),
+            torch.from_numpy(seg_np[3]).to(dev), seg_np[4])
+    del seg_np
+    r1 = simvote_scores_segmented_cuda(*segj)
+    r2 = simvote_scores_segmented_ref(*segj)
+    torch.testing.assert_close(r1, r2, rtol=1e-5, atol=1e-6)
+    nj, dj, cj, mj = segj[0].shape[0], segj[0].shape[1], len(segj[1]), \
+        segj[2].shape[1]
+    bnd = bound(4 * (nj * dj + cj * mj * dj + cj * mj + cj + nj),
+                2 * nj * mj * dj + 2 * (nj + cj * mj) * dj, "float32")
+    (jms, j_ahead), (jplain, _) = (device_ms(fn, [segj]) for fn in (
+        simvote_scores_segmented_cuda, simvote_scores_segmented_ref))
+    jprof = profiler_ms(simvote_scores_segmented_cuda, [segj],
+                        "simvote_kernel")
+    record["simvote_scores_segmented"]["at_join_width"] = dict(
+        rows=nj, clusters=cj, m=mj, d=dj,
+        max_abs_err=(r1 - r2).abs().max().item(), ms=jms, profiler_ms=jprof,
+        plain_ms=jplain, bound_ms=bnd[0], bound_by=bnd[1])
+    log(f"[kernels] simvote_scores_segmented at the join's width ({cj} "
+        f"blocks, {nj} pair rows, M {mj}, D {dj}): within rtol 1e-5 atol "
+        f"1e-6 (max abs err {(r1 - r2).abs().max().item():.3g}), kernel "
+        f"{jms:.4f} ms (profiler a launch {jprof:.4f}), plain {jplain:.4f} "
+        f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}); host ahead {j_ahead}  [{smi}]")
+    del segj, r1, r2
 
     # K4 at one oracle batch of llama3.1-8b: B=64, H=32, KV=8, S=64, hd=128
     B, H, KV, S, hd = 64, 32, 8, 64, 128
@@ -608,6 +999,11 @@ def main() -> int:
     log(f"[generate] the kernel and plain-attention greedy streams agree on "
         f"{agree:.4f} of {N_GEN * MAX_NEW} tokens (reported, not required: "
         f"near-ties over the vocab flip in bf16)")
+
+    # -------------------------------------------------------- 6. session
+    session = phase_session(ds, mds, engine, tok, counted, by_path, log, smi,
+                            cfg.n_layers)
+    log(json.dumps({"session": session}))
 
     kernels = []
     for name, rec in record.items():

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.kmeans.ops import assign_clusters
@@ -123,3 +124,38 @@ def minibatch_kmeans_update(cents: torch.Tensor, counts: torch.Tensor,
                        ).index_add(0, a, lr)
     cents = cents * (1 - hits[:, None]) + sums + cents * 0.0
     return cents, counts
+
+
+_STEP_ROWS = 1 << 16  # rows widened to f64 at a time in the step below
+
+
+def distributed_kmeans_step(x_local: torch.Tensor, cents: torch.Tensor,
+                            group=None) -> torch.Tensor:
+    """One Lloyd step over rows spread across ranks: local sums + all-reduce.
+
+    Each rank passes its own rows ``x_local`` and the same (replicated)
+    centroids; the per-cluster sums and counts of K1's assignment are
+    summed over ``group`` with ``torch.distributed.all_reduce`` (the
+    reference's ``lax.psum`` under ``shard_map``).  Runs where the tensors
+    are.  Returns the updated centroids, equal on every rank.  Raises when
+    no process group is initialised: a local step would silently ignore
+    the other ranks' rows.
+    """
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "distributed_kmeans_step needs an initialised torch.distributed "
+            "process group (torch.distributed.init_process_group)")
+    k, d = cents.shape
+    assign, _ = assign_clusters(x_local, cents)
+    a = assign.long()
+    # f64 sums, a bounded slab of rows at a time: f32 adds over ~10^4
+    # rows a cluster drift by up to ~1e-5 of the mean
+    sums = torch.zeros((k, d), dtype=torch.float64, device=x_local.device)
+    for r in range(0, x_local.shape[0], _STEP_ROWS):
+        sums.index_add_(0, a[r:r + _STEP_ROWS],
+                        x_local[r:r + _STEP_ROWS].double())
+    counts = torch.bincount(a, minlength=k).double()
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(counts, group=group)
+    means = (sums / torch.clamp(counts[:, None], min=1.0)).to(cents.dtype)
+    return torch.where(counts[:, None] > 0, means, cents)

@@ -39,6 +39,7 @@ from repro_torch.core.clustering import Seeder, kmeans
 from repro_torch.core.oracle import (AsyncOracleDispatcher,
                                      SyncOracleDispatcher)
 from repro_torch.core.voting import sim_vote, uni_vote, vote_clusters
+from repro_torch.distributed.round import shard_clusters
 from repro_torch.obs.trace import get_tracer
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.timing import monotonic
@@ -62,8 +63,9 @@ class CSVConfig:
     executor: str = "round"  # "round" | "sequential"
     pipeline_depth: int = 1  # oracle waves per round (>1 overlaps prefill
     #                          of the next wave with voting of the current)
-    shards: int = 1  # >1 partitions each round's clusters across shards;
-    #                  not ported yet (see semantic_filter)
+    shards: int = 1  # >1 partitions each round's clusters across shards
+    #                  (repro_torch.distributed.round) — bit-identical masks,
+    #                  call counts, and memo state to shards=1
 
     @property
     def ub_(self) -> float:
@@ -89,7 +91,7 @@ class FilterResult:
     # subset when a plan cascade masks out already-rejected tuples
     n_input: int = -1
     # tuples decided by replaying a session-memoized earlier run (zero
-    # oracle cost); > 0 only on the session API's reuse path (a later slice)
+    # oracle cost); > 0 only on the repro_torch.api reuse path
     n_replayed: int = 0
 
 
@@ -229,7 +231,16 @@ def _recluster_or_fallback(emb, oracle, cfg, pending, depth, result, decided,
 def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
                         cluster_log, round_log, queue, device,
                         init_centroids):
-    """plan → sample → oracle → vote → partition, one round per iteration."""
+    """plan → sample → oracle → vote → partition, one round per iteration.
+
+    With ``cfg.shards > 1`` a round's clusters are split into shards
+    (``repro_torch.distributed.round.shard_clusters``: contiguous, balanced
+    by sample count) instead of ``cfg.pipeline_depth`` even waves.  The
+    shards share this process and card, so each is a wave: its oracle batch
+    goes through the same FIFO lane in shard order and its outputs are
+    written back in round cluster order, which keeps masks, calls and logs
+    equal to ``shards=1``.
+    """
     tr = get_tracer()
     lb, ub = cfg.lb, cfg.ub_
     n_voted = n_fallback = 0
@@ -242,13 +253,16 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
             t_round = monotonic()
             with tr.span("plan", kind="plan"):
                 plan = plan_round(queue, rng, xi, cfg, depth)
-            n_waves = max(1, min(int(cfg.pipeline_depth),
-                                 len(plan.clusters)))
-            bounds = np.linspace(0, len(plan.clusters),
-                                 n_waves + 1).astype(int)
-            waves = [plan.clusters[bounds[k]:bounds[k + 1]]
-                     for k in range(n_waves)]
-            waves = [w for w in waves if w]
+            if cfg.shards > 1:
+                waves = shard_clusters(plan.clusters, cfg.shards)
+            else:
+                n_waves = max(1, min(int(cfg.pipeline_depth),
+                                     len(plan.clusters)))
+                bounds = np.linspace(0, len(plan.clusters),
+                                     n_waves + 1).astype(int)
+                waves = [plan.clusters[bounds[k]:bounds[k + 1]]
+                         for k in range(n_waves)]
+                waves = [w for w in waves if w]
 
             dispatcher = (AsyncOracleDispatcher(oracle) if len(waves) > 1
                           else SyncOracleDispatcher(oracle))
@@ -326,7 +340,8 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
                 depth=depth, n_clusters=len(plan.clusters),
                 n_sampled=plan.n_sampled, n_voted=round_voted,
                 n_undetermined=n_undet, waves=len(waves),
-                oracle_batches=oracle_batches))
+                oracle_batches=oracle_batches,
+                shards=len(waves) if cfg.shards > 1 else 1))
             rsp.set(n_sampled=plan.n_sampled, n_voted=round_voted,
                     n_undetermined=n_undet, waves=len(waves))
             tr.metrics.inc("driver.rounds")
@@ -457,10 +472,6 @@ def semantic_filter(embeddings: np.ndarray, oracle, cfg: CSVConfig = None,
         raise ValueError(f"shards must be >= 1, got {cfg.shards}")
     if cfg.shards > 1 and cfg.executor != "round":
         raise ValueError("shards > 1 requires executor='round'")
-    if cfg.shards > 1:
-        raise NotImplementedError(
-            "shards > 1 (distributed/round.py) is not ported yet: it is the "
-            "next slice of the PyTorch port (ROADMAP.md queue 1, step 1)")
     t0 = monotonic()
     rng = np.random.default_rng(cfg.seed)
     n = embeddings.shape[0]

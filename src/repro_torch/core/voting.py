@@ -154,7 +154,9 @@ def sim_vote_batch(emb_unsampled: Sequence[np.ndarray],
     (C, max_m, D) sample tensor plus a concatenated unsampled matrix and
     scored by the segmented simvote kernel; bandwidths stay per-cluster
     (``default_bandwidth`` of each cluster's own sample, matching the
-    sequential path).
+    sequential path).  ``emb_unsampled`` may hold tensors already on the
+    device (the join gathers its pair rows there); they are concatenated
+    there, never copied through the host.
     """
     dev = resolve_device(device)
     c = len(emb_unsampled)
@@ -174,7 +176,7 @@ def sim_vote_batch(emb_unsampled: Sequence[np.ndarray],
     if not live:
         return out  # type: ignore[return-value]
 
-    d = np.asarray(emb_unsampled[live[0]]).shape[1]
+    d = emb_unsampled[live[0]].shape[1]
     max_m = max(len(emb_sampled[ci]) for ci in live)
     s_pad = np.zeros((len(live), max_m, d), np.float32)
     y_pad = -np.ones((len(live), max_m), np.float32)
@@ -184,10 +186,14 @@ def sim_vote_batch(emb_unsampled: Sequence[np.ndarray],
         s_pad[r, :m_c] = emb_sampled[ci]
         y_pad[r, :m_c] = sample_labels[ci]
         taus[r] = bandwidth or default_bandwidth(np.asarray(emb_sampled[ci]))
-    x_all = np.concatenate([np.asarray(emb_unsampled[ci], np.float32)
-                            for ci in live])
+    if isinstance(emb_unsampled[live[0]], torch.Tensor):
+        x_all = torch.cat([emb_unsampled[ci].to(dev, torch.float32)
+                           for ci in live])
+    else:
+        x_all = _f32(np.concatenate([np.asarray(emb_unsampled[ci], np.float32)
+                                     for ci in live]), dev)
     scores_all = simvote_scores_segmented(
-        _f32(x_all, dev), counts[live], _f32(s_pad, dev), _f32(y_pad, dev),
+        x_all, counts[live], _f32(s_pad, dev), _f32(y_pad, dev),
         taus).cpu().numpy()
     stop = np.cumsum(counts[live])
     for r, ci in enumerate(live):

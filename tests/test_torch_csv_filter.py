@@ -111,9 +111,17 @@ def test_model_oracle_run_matches_reference():
 
 
 def test_shards_wait_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="distributed/round.py"):
-        tcf.semantic_filter(DATA.embeddings, SyntheticOracle(LABELS),
-                            tcf.CSVConfig(shards=2), device="cpu")
+    """The sharded path is ported (tests/test_torch_distributed_round.py):
+    shards=2 runs and equals shards=1; a bad executor still raises."""
+    runs = [tcf.semantic_filter(DATA.embeddings, SyntheticOracle(LABELS),
+                                tcf.CSVConfig(shards=s, **_kw("uni", "round",
+                                                               1)),
+                                init_centroids=jax_seeder, device="cpu")
+            for s in (1, 2)]
+    np.testing.assert_array_equal(runs[1].mask, runs[0].mask)
+    assert runs[1].n_llm_calls == runs[0].n_llm_calls
+    assert runs[1].cluster_log == runs[0].cluster_log
+    assert any(r.shards == 2 for r in runs[1].round_log)
     with pytest.raises(ValueError, match="executor"):
         tcf.semantic_filter(DATA.embeddings, SyntheticOracle(LABELS),
                             tcf.CSVConfig(executor="nope"), device="cpu")

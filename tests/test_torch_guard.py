@@ -43,6 +43,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core.csv_filter\n"
             "import repro_torch.serving.engine\n"
             "import repro_torch.models.lm\n"
+            "import repro_torch.api, repro_torch.plan, repro_torch.core\n"
+            "import repro_torch.distributed, repro_torch.embeddings\n"
+            "import repro_torch.obs.audit, repro_torch.core.bm25\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

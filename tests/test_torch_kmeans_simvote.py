@@ -121,6 +121,7 @@ def test_simvote_ref_matches_reference_many_samples(jx, n, m, d):
 @pytest.mark.parametrize("counts,ms,d", [
     ([40, 1, 70], [129, 300, 17], 37),
     ([90, 25], [300, 140], 1023),
+    ([60, 33, 5], [101, 101, 101], 2048),  # the join's pair width, 2 x 1024
 ])
 def test_simvote_segmented_ref_matches_reference_wide(jx, counts, ms, d):
     x, counts, s_pad, y_pad, taus = _segmented_inputs(counts, ms, d)
@@ -278,6 +279,8 @@ def test_cuda_simvote_many_samples_matches_plain(cuda, monkeypatch, n, m, d,
     ([120, 1, 0, 333], [101, 300, 7, 129], 1023, ()),  # one row, empty, scalar
     ([0, 90, 40], [5, 101, 600], 64, (1,)),          # labels all padding
     ([1, 1, 1], [1, 2, 128], 37, ()),
+    # a join round's blocks at the pair width 2 x 1024, M 101 each
+    ([3000, 850, 40, 1200, 1], [101] * 5, 2048, ()),
 ])
 @pytest.mark.parametrize("rows", [None, 32, 64])
 def test_cuda_simvote_segmented_wide_matches_plain(cuda, monkeypatch, counts,
