@@ -56,25 +56,53 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             the phase-4 table and engine, and distributed_kmeans_step on a
             one-rank NCCL group against one Lloyd step from K1's
             assignment (1e-5).
+7. encode   a full-width e5-large (bf16, random weights from a torch seed)
+            embeds the phase-4 table's 4,096 texts at max_len 128 (rows/s
+            and tokens/s); a Session whose embedder is that encoder runs
+            RV-Q1 under csv-sim over the text-only table; the smoke-width
+            encoder on the card against the CPU (f32, ENC_CPU_LIMIT).
+8. chunked  gemma3-12b at full width cut to one superblock (5 sliding-
+            window layers and 1 global), bf16: lm.forward at S 4,096 under
+            attn_impl "auto" (the window layers on the banded schedule),
+            "chunked" and "tri", each timed and its logits held against
+            "plain" (CHUNK_LIMIT), which a control with halved windows
+            must exceed.  The schedules are plain torch: no kernel runs.
+9. service  the engine workload of benchmarks/bench_service_throughput.py
+            (four filters and a two-leaf cascade, six ModelOracles on the
+            phase-4 llama3.1-8b, csv-sim) submitted through Session.submit
+            under scheduler.holding(), against serial collect() in a fresh
+            session: prompts an engine batch, prefill tokens/s, wall time;
+            a decision that differs must sit within DECODE_LIMIT of a tie.
+            The same workload on SyntheticOracles must equal serial
+            exactly.  A FilterService checkpoint (store_dir in a temporary
+            directory) restored in a new session, and a SessionLogStore run
+            cut after three of the five queries, replay at 0 oracle calls
+            to the same masks.
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
 blocks, M 101, D 2,048) with its time and bound.
 
-Each kernel wrapper counts its launches.  There are thirteen main-path
+Each kernel wrapper counts its launches.  There are sixteen main-path
 runs: the round executor, the sequential executor, the model path,
-generate, and phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
+generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
 alone), session_repeat, replay, shards, join, model_leaf and
-kmeans_step.  The counts are set to 0 just before each and read just
-after it, and each run must launch its own kernels and no other (round:
+kmeans_step, and encode, service and service_replay.  The counts are
+set to 0 just before each and read just after it, and each run must
+launch its own kernels and no other (round:
 K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
 batches; generate: K4 = 32 x batches and K5 = 32 x batches x 32 new
 tokens; session, the leaves alone, session_repeat, shards and join: K1,
 K3; replay: K3, and K1 where a node it runs again re-clusters;
-model_leaf: K1, K3 and K4 = 32 x batches; kmeans_step: K1).  Checks
-against plain versions and the join's profiled repeat run outside those
-windows.  In the kernels' JSON
+model_leaf: K1, K3 and K4 = 32 x batches; kmeans_step: K1; encode: K1,
+K3; service: K1, K3 and K4 = 32 x the engine's batches; service_replay:
+K3, and K1 where a node it runs again re-clusters).  Phase 8 must launch
+none.  Checks against plain versions, the join's profiled repeat and
+phase 9's serial, synthetic and state-building runs run outside those
+windows.  The service's query threads and its dispatch lane launch on
+their current stream, the default stream, where their inputs were made.  In the kernels' JSON
 record, "launches" is the sum over the runs and "launches_by_path"
-splits it.  Before it come phase 6's numbers ({"session": ...}); the
+splits it.  Before it come the numbers of phases 6-9 ({"session": ...},
+{"encode": ...}, {"chunked": ...}, {"service": ...}); the
 second-to-last lines are the kernels' record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -91,6 +119,10 @@ N_DATA, DIM, N_MODEL = 50_000, 1024, 4096
 N_GEN, MAX_NEW = 128, 32   # generate: prompts, new tokens (<= 64: no clamp)
 DECODE_LIMIT = 0.25        # teacher-forced decode logits, K5 vs plain
 N_JOIN = 400               # session phase: rows of each joined table
+ENC_MAX_LEN = 128          # encode phase: tokens a chunk
+ENC_CPU_LIMIT = 1e-5       # smoke encoder, card against CPU, f32
+CHUNK_S = 4096             # chunked phase: the prompt gemma3-12b prefills
+CHUNK_LIMIT = 0.25         # chunked schedules' bf16 logits against plain
 
 
 def log(*args):
@@ -441,6 +473,368 @@ def phase_session(ds, mds, engine, tok, counted, by_path, log, smi,
         raise AssertionError(f"distributed_kmeans_step off by {err}")
     out["kmeans_step_err"] = err
     return out
+def phase_encode(mds, counted, log, smi):
+    """Phase 7: the paper's phase 1 on the card.  A full-width e5-large
+    (bf16, random weights from a torch seed) embeds the phase-4 table's
+    texts; a Session whose embedder is that encoder filters the text-only
+    table; the smoke-width encoder on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPolicy, Session
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.oracle import SyntheticOracle
+    from repro_torch.embeddings import EmbeddingModel
+    from repro_torch.embeddings.encoder import init_encoder_params
+    from repro_torch.utils.timing import monotonic
+
+    cfg = get_config("e5-large")
+    t0 = monotonic()
+    model = EmbeddingModel(cfg, seed=0, max_len=ENC_MAX_LEN)
+    torch.cuda.synchronize()
+    init_s = monotonic() - t0
+    texts = list(mds.texts)
+    model.encode(texts[:64])                    # warm-up batch
+    t0 = monotonic()
+    emb = model.encode(texts)                   # numpy: synchronised
+    wall = monotonic() - t0
+    lens = [len(model.tok.encode(t)) for t in texts]
+    chunks = sum(max(1, -(-n // ENC_MAX_LEN)) for n in lens)
+    norms = np.linalg.norm(emb, axis=1)
+    log(f"[encode] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, {cfg.dtype}, init "
+        f"{init_s:.1f} s; {len(texts)} texts ({chunks} chunks of at most "
+        f"{ENC_MAX_LEN} tokens, {sum(lens)} tokens) in {wall:.3f} s = "
+        f"{len(texts) / wall:.1f} rows/s, {sum(lens) / wall:.0f} tokens/s "
+        f"({chunks * ENC_MAX_LEN / wall:.0f} padded positions/s)  [{smi}]")
+    if emb.shape != (len(texts), cfg.d_model) or not np.isfinite(emb).all() \
+            or not np.allclose(norms, 1.0, atol=1e-4):
+        raise AssertionError("the encoder returned malformed embeddings")
+
+    # a text-only table: the session embeds it through the encoder
+    sess = Session(embedder=model.encode,
+                   policy=ExecutionPolicy(method="csv-sim"))
+    table = sess.table(texts=texts, name="texts")
+    oracle = SyntheticOracle(mds.labels["RV-Q1"], flip_prob=0.02, seed=0)
+    t0 = monotonic()
+    res = counted("encode", lambda: table.filter("RV-Q1", oracle).collect(),
+                  {"kmeans_assign", "simvote_scores_segmented"})
+    wall_q = monotonic() - t0
+    fr = res.raw.results["RV-Q1"]
+    acc = float((res.mask == mds.labels["RV-Q1"]).mean())
+    log(f"[encode] Session(embedder=...) over the text-only table, RV-Q1 "
+        f"csv-sim: {res.n_llm_calls} oracle calls, {fr.n_voted} voted, "
+        f"{fr.n_fallback} fallback, accuracy {acc:.4f}, wall {wall_q:.2f} s "
+        f"(embedding included)  [{smi}]")
+    if fr.n_llm_calls + fr.n_voted != len(texts) or acc < 0.9:
+        raise AssertionError("the encoder-fed filter did not cover the table "
+                             "or fell below accuracy 0.9")
+    if not np.array_equal(np.asarray(table.embeddings), emb):
+        raise AssertionError("the session's embeddings differ from encode()")
+
+    # the smoke-width encoder: the card against the CPU, float32
+    small = smoke_config("e5-large")
+    cpu_params = init_encoder_params(small, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}  # noqa: E731
+                        if isinstance(t, dict) else [to_dev(v) for v in t]
+                        if isinstance(t, list) else t.cuda())
+    probe = texts[:256]
+    want = EmbeddingModel(small, params=cpu_params, max_len=32,
+                          device="cpu").encode(probe)
+    got = EmbeddingModel(small, params=to_dev(cpu_params),
+                         max_len=32).encode(probe)
+    err = float(np.abs(got - want).max())
+    log(f"[encode] smoke-width encoder, card against CPU (f32, max_len 32, "
+        f"{len(probe)} texts): max abs diff {err:.3g} (limit "
+        f"{ENC_CPU_LIMIT})")
+    if not err < ENC_CPU_LIMIT:
+        raise AssertionError(f"the encoder on the card is off by {err}")
+    return dict(rows_s=len(texts) / wall, tokens_s=sum(lens) / wall,
+                wall_s=wall, chunks=chunks, tokens=sum(lens),
+                filter=dict(calls=res.n_llm_calls, voted=fr.n_voted,
+                            accuracy=acc, wall_s=wall_q), cpu_err=err)
+
+
+def phase_chunked(counters, log, smi):
+    """Phase 8: gemma3-12b at full width, one superblock (5 sliding-window
+    layers and 1 global), bf16, lm.forward at S 4,096 under "auto" (the
+    window layers on the banded schedule), "chunked" and "tri", each
+    against "plain"; a control with halved windows must exceed the
+    limit.  No kernel of the port runs here: the schedules are plain
+    torch, as the reference's are XLA."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import LayerSpec
+    from repro_torch.utils.timing import monotonic
+
+    dev = torch.device("cuda")
+    base = get_config("gemma3-12b")
+    cfg = base.replace(n_layers=len(base.pattern))
+    t0 = monotonic()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    log(f"[chunked] {cfg.name}: {cfg.n_layers} layers "
+        f"({[s.window for s in cfg.pattern]}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, chunks "
+        f"{cfg.attn_chunk_q}/{cfg.attn_chunk_kv}, init "
+        f"{monotonic() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (1, CHUNK_S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    for fn in counters.values():
+        fn.launches = 0
+
+    def forward(c):
+        """lm.forward under config c: (logits, best ms of two runs)."""
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = monotonic()
+            with torch.inference_mode():
+                logits, _ = lm.forward(c, params, tokens)
+            torch.cuda.synchronize()
+            times.append((monotonic() - t0) * 1e3)
+        return logits, min(times)
+
+    want, plain_ms = forward(cfg.replace(attn_impl="plain"))
+    out = {"plain_ms": plain_ms}
+    for impl in ("auto", "chunked", "tri"):
+        got, ms = forward(cfg.replace(attn_impl=impl))
+        diff = float((got - want).abs().max())
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{impl}: non-finite logits")
+        del got
+        out[impl] = dict(ms=ms, max_abs_diff=diff)
+        log(f"[chunked] attn_impl={impl!r} at S {CHUNK_S}: {ms:.1f} ms "
+            f"against plain {plain_ms:.1f} ms ({ms / plain_ms:.2f}x), logits "
+            f"max abs diff from plain {diff:.4g} (limit {CHUNK_LIMIT})  "
+            f"[{smi}]")
+    half = cfg.replace(attn_impl="auto", pattern=tuple(
+        LayerSpec(kind=s.kind, window=s.window // 2, ffn=s.ffn)
+        if s.window else s for s in cfg.pattern))
+    bad, _ = forward(half)
+    control = float((bad - want).abs().max())
+    del bad, want
+    log(f"[chunked] control (windows halved, banded): max abs diff "
+        f"{control:.4g}")
+    worst = max(out[i]["max_abs_diff"] for i in ("auto", "chunked", "tri"))
+    if not worst < CHUNK_LIMIT < control:
+        raise AssertionError(
+            f"chunked schedules differ from plain by {worst}, the control "
+            f"by {control}: the limit {CHUNK_LIMIT} must lie between them")
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"the chunked schedules launched {launched}")
+    out["control_diff"] = control
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+SERVICE_PREDICATES = ["the review is positive",
+                      "the review praises the acting",
+                      "the review discusses the plot",
+                      "the review would recommend the movie",
+                      "the review complains about pacing",
+                      "the review mentions the soundtrack"]
+# (labels key, flip seed) for the same workload on SyntheticOracles
+SERVICE_SYNTHETIC = [("RV-Q1", 7), ("RV-Q3", 8), ("RV-Q2", 9), ("RV-Q1", 11),
+                     ("RV-Q2", 12), ("RV-Q3", 13)]
+
+
+def service_workload(sess, rows, make_oracle):
+    """Four filters and a two-leaf cascade over the table ``rows``, one
+    oracle each (benchmarks/bench_service_throughput.py's workload)."""
+    t = sess.table(embeddings=rows.embeddings, name="reviews")
+    oracles = [make_oracle(i) for i in range(6)]
+    names = [f"p{i}" for i in range(6)]
+    qs = [t.filter(names[i], oracles[i]) for i in range(4)]
+    qs.append(t.filter(names[4], oracles[4]) & t.filter(names[5], oracles[5]))
+    return qs, oracles
+
+
+def phase_service(mds, engine, tok, counted, by_path, log, smi, n_layers):
+    """Phase 9: the concurrent service on the card.  Five queries through
+    Session.submit under scheduler.holding() on the phase-4 llama3.1-8b
+    (K4 in every engine batch), against serial collect() in a fresh
+    session; the same with SyntheticOracles, which must equal serial
+    exactly; a FilterService checkpoint restored in a new session and a
+    SessionLogStore run cut mid-run, both replayed at 0 oracle calls."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.api import ExecutionPolicy, Session
+    from repro_torch.core.oracle import ModelOracle, SyntheticOracle
+    from repro_torch.obs.trace import Tracer, use_tracer
+    from repro_torch.service import FilterService
+    from repro_torch.utils.timing import monotonic
+
+    # the benchmark's engine policy (4 clusters, 8 samples a cluster, 8
+    # pilot probes), with SimVote so every round runs K3
+    pol = ExecutionPolicy(method="csv-sim", n_clusters=4, min_sample=8,
+                          pilot_size=8)
+    n = len(mds.labels["RV-Q1"])
+
+    def model_oracle(i):
+        return ModelOracle(engine, tok, SERVICE_PREDICATES[i], mds.texts)
+
+    def synth_oracle(i):
+        key, seed = SERVICE_SYNTHETIC[i]
+        return SyntheticOracle(mds.labels[key], flip_prob=0.02, seed=seed,
+                               token_lens=mds.token_lens)
+
+    def engine_mark():
+        st = engine.stats
+        return st["batches"], st["batched_prompts"], st["prefill_tokens"]
+
+    def submitted(sess, qs):
+        with sess.scheduler.holding():
+            tickets = [sess.submit(q) for q in qs]
+        return sess.gather(*tickets)
+
+    # ---- the model workload, packed through the scheduler
+    sess = Session(policy=pol)
+    qs, oracles = service_workload(sess, mds, model_oracle)
+    tracer = Tracer()
+    m0 = engine_mark()
+    t0 = monotonic()
+    with use_tracer(tracer):
+        packed = counted("service", lambda: submitted(sess, qs),
+                         {"kmeans_assign", "simvote_scores_segmented",
+                          "flash_attention"})
+    wall_p = monotonic() - t0
+    merge = sess.scheduler.stats.merge
+    sess.close()
+    m1 = engine_mark()
+    ticks = [sp for sp in tracer.spans() if sp.kind == "engine_tick"]
+    tick_s = sum(sp.duration_s for sp in ticks)
+    batches_p, prompts_p = m1[0] - m0[0], m1[1] - m0[1]
+    k4 = by_path["service"]["flash_attention"]
+    if k4 != n_layers * batches_p:
+        raise AssertionError(f"service: K4 launched {k4} times, not "
+                             f"{n_layers} x {batches_p} batches")
+
+    # ---- serial collect() in a fresh session, fresh oracles, same engine
+    ssess = Session(policy=pol)
+    sqs, soracles = service_workload(ssess, mds, model_oracle)
+    t0 = monotonic()
+    serial = [q.collect() for q in sqs]
+    wall_s = monotonic() - t0
+    m2 = engine_mark()
+    batches_s, prompts_s = m2[0] - m1[0], m2[1] - m1[1]
+    log(f"[service] model workload, 5 queries (6 ModelOracles) over {n} "
+        f"rows: packed {sum(r.n_llm_calls for r in packed)} calls in "
+        f"{batches_p} engine batches ({prompts_p / batches_p:.2f} prompts a "
+        f"batch; {merge.n_invocations} dispatch waves, merge factor "
+        f"{merge.merge_factor:.2f}), wall {wall_p:.2f} s; serial "
+        f"{sum(r.n_llm_calls for r in serial)} calls in {batches_s} batches "
+        f"({prompts_s / batches_s:.2f} prompts a batch), wall {wall_s:.2f} s; "
+        f"packing ratio {(prompts_p / batches_p) / (prompts_s / batches_s):.3f}"
+        f"x; prefill {m1[2] - m0[2]} tokens in {tick_s:.2f} s of engine_tick "
+        f"spans = {(m1[2] - m0[2]) / tick_s:.0f} prefill tokens/s  [{smi}]")
+
+    # decisions of the two runs, oracle by oracle: a decision that differs
+    # must sit on a near-tie (its yes/no margin within the decode limit)
+    flips = []
+    for i, (a, b) in enumerate(zip(oracles, soracles)):
+        ma, mb = a.memo_snapshot(), b.memo_snapshot()
+        for row in sorted(set(ma) & set(mb)):
+            if ma[row] != mb[row]:
+                pair = engine.first_token_logits(
+                    a.pack_prompts([row]), token_ids=a.pack_token_ids(1))
+                flips.append((i, row, float(pair[0, 0] - pair[0, 1])))
+    mask_diff = [int((p.mask != s.mask).sum()) for p, s in zip(packed, serial)]
+    call_diff = [p.n_llm_calls - s.n_llm_calls for p, s in zip(packed, serial)]
+    log(f"[service] packed against serial: {len(flips)} decisions differ "
+        f"(oracle, row, yes-no margin): {flips[:20]}; masks differ on "
+        f"{mask_diff} rows, calls by {call_diff}")
+    big = [f for f in flips if abs(f[2]) > DECODE_LIMIT]
+    if big:
+        raise AssertionError(f"packed and serial decisions differ beyond "
+                             f"near-ties (margin > {DECODE_LIMIT}): {big}")
+
+    # ---- the same workload on SyntheticOracles: packed equals serial
+    def synthetic(packed_run):
+        s = Session(policy=pol)
+        q, o = service_workload(s, mds, synth_oracle)
+        res = submitted(s, q) if packed_run else [x.collect() for x in q]
+        s.close()
+        return res, [x.stats.batch_sizes for x in o]
+
+    sp, sp_batches = synthetic(True)
+    ss, ss_batches = synthetic(False)
+    same = all((a.mask == b.mask).all() and a.n_llm_calls == b.n_llm_calls
+               for a, b in zip(sp, ss)) and sp_batches == ss_batches
+    log(f"[service] SyntheticOracle workload: packed and serial masks, calls "
+        f"{[r.n_llm_calls for r in sp]} and oracle batch sizes equal: {same}")
+    if not same:
+        raise AssertionError("the synthetic packed run differs from serial")
+
+    # ---- persistence: a FilterService checkpoint and a cut session log,
+    # each replayed in a new session at 0 oracle calls
+    with tempfile.TemporaryDirectory() as tmp:
+        def build(**kw):
+            s = Session(policy=pol)
+            qs_, os_ = service_workload(s, mds, synth_oracle)
+            for i, o in enumerate(os_):
+                s.register_oracle(f"p{i}", o)
+            svc = FilterService(s, **kw)
+            svc.register_tenant("t0", pol)
+            return s, svc, qs_
+
+        def run_all(svc, qs_):
+            with svc.session.scheduler.holding():
+                tickets = [svc.submit("t0", q) for q in qs_]
+            return svc.gather(*tickets)
+
+        s1, svc1, q1 = build(store_dir=f"{tmp}/store")
+        first = run_all(svc1, q1)
+        svc1.checkpoint()
+        svc1.close()
+        s2, svc2, q2 = build(store_dir=f"{tmp}/store")
+        rep = svc2.restore()
+
+        s3, svc3, q3 = build(log_dir=f"{tmp}/log")
+        logged = run_all(svc3, q3[:3])          # the log is cut here
+        svc3.log.abandon()
+        s3.close()
+        s4, svc4, q4 = build(log_dir=f"{tmp}/log")
+        lrep = svc4.restore()
+
+        rerun = [nd for r in first for nd in r.node_log
+                 if nd.n_in < n and nd.result.recluster_rounds]
+        again, log_again = counted(
+            "service_replay", lambda: (run_all(svc2, q2),
+                                       run_all(svc4, q4[:3])),
+            {"simvote_scores_segmented"} | ({"kmeans_assign"} if rerun
+                                            else set()))
+        spent = s2.stats.n_calls + s4.stats.n_calls
+        equal = all((a.mask == b.mask).all() for a, b in
+                    zip(first + logged, again + log_again))
+        log(f"[service_replay] FilterService checkpoint restored ({rep}); "
+            f"session log cut after 3 of 5 queries, restored ({lrep}): "
+            f"{spent} oracle calls spent on replay, masks equal {equal}  "
+            f"[{smi}]")
+        if spent or not equal or any(r.n_llm_calls for r in again + log_again):
+            raise AssertionError("the service replays spent oracle calls or "
+                                 "changed a mask")
+        svc2.close()
+        svc4.close()
+    return dict(
+        packed=dict(calls=[r.n_llm_calls for r in packed], batches=batches_p,
+                    prompts=prompts_p, wall_s=wall_p,
+                    waves=merge.n_invocations,
+                    merge_factor=merge.merge_factor,
+                    prefill_tokens_s=(m1[2] - m0[2]) / tick_s),
+        serial=dict(calls=[r.n_llm_calls for r in serial], batches=batches_s,
+                    prompts=prompts_s, wall_s=wall_s),
+        packing_ratio=(prompts_p / batches_p) / (prompts_s / batches_s),
+        decision_flips=flips, mask_diff=mask_diff,
+        synthetic_calls=[r.n_llm_calls for r in sp], replay_spent=spent)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1004,6 +1398,19 @@ def main() -> int:
     session = phase_session(ds, mds, engine, tok, counted, by_path, log, smi,
                             cfg.n_layers)
     log(json.dumps({"session": session}))
+
+    # --------------------------------------------------------- 7. encode
+    encode = phase_encode(mds, counted, log, smi)
+    log(json.dumps({"encode": encode}))
+
+    # -------------------------------------------------------- 8. chunked
+    chunked = phase_chunked(counters, log, smi)
+    log(json.dumps({"chunked": chunked}))
+
+    # -------------------------------------------------------- 9. service
+    service = phase_service(mds, engine, tok, counted, by_path, log, smi,
+                            cfg.n_layers)
+    log(json.dumps({"service": service}))
 
     kernels = []
     for name, rec in record.items():

@@ -22,13 +22,16 @@ satisfy the ``PlanExecutor`` table protocol (``embeddings``,
 ``precluster``, ``device``, ``init_centroids``, ``len``), so the plan layer
 runs on them unchanged.
 
-The concurrent service (``scheduler``/``submit``/``gather``), the dispatch
-coordinator and the durable session log are not ported yet (ROADMAP.md
-queue 1, step 7).
+``submit``/``gather`` run queries concurrently through the session's
+``repro_torch.service.QueryScheduler``; ``coordinator=`` shares one
+dispatch lane between several sessions' schedulers; an attached
+``repro_torch.service.log.SessionLogStore`` records every mutation and
+precluster fit through the ``_session_log`` hooks.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,9 +46,6 @@ from repro_torch.embeddings.cache import CachingEmbedder, EmbeddingCache
 from repro_torch.obs.trace import get_tracer
 from repro_torch.plan.expr import Expr, Pred
 from repro_torch.utils.device import resolve_device
-
-_SERVICE = ("the concurrent query service (repro_torch.service) is not "
-            "ported yet: ROADMAP.md queue 1, step 7")
 
 
 class TableHandle:
@@ -163,6 +163,9 @@ class TableHandle:
         get_tracer().metrics.inc("session.append_rows", n_new)
         # growing a table reindexes pair ids of joins against it
         self.session._clear_pair_oracles(self.name)
+        self.session._log_mutation(
+            "append", self, texts=list(texts) if texts is not None else None,
+            embeddings=new_emb)
         return self
 
     @contextlib.contextmanager
@@ -220,6 +223,8 @@ class TableHandle:
         n_new = len(texts) if texts is not None else len(new_emb)
         get_tracer().metrics.inc("session.append_rows", n_new)
         self.session._clear_pair_oracles(self.name)
+        self.session._log_mutation("append", self, texts=texts,
+                                   embeddings=new_emb)
 
     def update(self, ids, texts: Optional[Sequence[str]] = None,
                embeddings=None) -> "TableHandle":
@@ -239,6 +244,10 @@ class TableHandle:
         self.version += 1
         self._apply_touched(touched)
         self.session._invalidate_oracles(self.name, ids)
+        self.session._log_mutation(
+            "update", self, ids=ids,
+            texts=list(texts) if texts is not None else None,
+            embeddings=new_emb)
         return self
 
     # ------------------------------------------------------------ queries
@@ -300,18 +309,24 @@ class Session:
     session runs; ``"cuda"`` unless the caller asks for ``"cpu"`` (raises
     without a GPU otherwise).  init_centroids: the k-means seeder hook
     ``(seed, x, k) -> (k, D)`` passed to every table and join (default
-    ``repro_torch.core.clustering.plusplus_init``).
+    ``repro_torch.core.clustering.plusplus_init``).  coordinator: an
+    optional ``repro_torch.distributed.DispatchCoordinator`` whose one
+    dispatch lane this session's scheduler shares with others'.
     """
 
     def __init__(self, policy: Optional[ExecutionPolicy] = None,
                  embedder: Optional[Callable] = None, engine=None,
-                 embedding_cache: Optional[EmbeddingCache] = None, *,
+                 embedding_cache: Optional[EmbeddingCache] = None,
+                 coordinator=None, *,
                  init_centroids: Optional[Seeder] = None, device="cuda"):
         self.device = resolve_device(device)
         self.init_centroids = init_centroids
         self.policy = policy or ExecutionPolicy()
         self.embedder = embedder
         self.engine = engine  # optional ServingEngine for ModelOracles
+        # optional repro_torch.distributed.DispatchCoordinator: several
+        # sessions' schedulers feed one merged dispatch lane
+        self.coordinator = coordinator
         # content-hash keyed embedding store: per-session by default; pass
         # one cache to several sessions to share embeddings explicitly
         # explicit None check: an empty cache is falsy (__len__ == 0), so
@@ -329,6 +344,15 @@ class Session:
         self._oracles: Dict[str, Tuple[Any, Any]] = {}
         self._anon_tables = 0
         self._anon_preds = 0
+        # shared-state guard for concurrent collects (repro_torch.service):
+        # the precluster cache and the run-level stats aggregates are the
+        # only session state written from query threads
+        self._lock = threading.Lock()
+        self._scheduler = None  # lazy repro_torch.service.QueryScheduler
+        # attached repro_torch.service.log.SessionLogStore recorder (None
+        # when the session is not log-backed); table mutations and
+        # precluster fits notify it through _log_mutation/_log_precluster
+        self._session_log = None
 
     # -------------------------------------------------------------- tables
     def table(self, texts: Optional[Sequence[str]] = None, embeddings=None,
@@ -386,6 +410,8 @@ class Session:
         if name in self._oracles:
             raise ValueError(f"oracle {name!r} already registered")
         self._oracles[name] = (oracle, proxy)
+        if self._session_log is not None:
+            self._session_log.bind_oracle(name, oracle)
 
     def oracle(self, name: str):
         return self._lookup_oracle(name)[0]
@@ -417,14 +443,23 @@ class Session:
         """
         key = (handle.name, int(n_clusters), int(seed))
         if key not in self._assign_cache:
-            assign, _ = handle._table.precluster_full(n_clusters, seed)
-            self._assign_cache[key] = assign
-            # per-cluster dirty versions start at the clustering's birth
-            # version: decisions memoized from here on see clean clusters
-            # until append()/update() touches them
-            handle._dirty.setdefault(
-                (int(n_clusters), int(seed)),
-                np.full(int(n_clusters), handle.version, dtype=np.int64))
+            # serialized: concurrent service queries on one table must not
+            # race the (deterministic but expensive) k-means fit
+            with self._lock:
+                if key not in self._assign_cache:
+                    assign, _ = handle._table.precluster_full(n_clusters,
+                                                              seed)
+                    self._assign_cache[key] = assign
+                    # per-cluster dirty versions start at the clustering's
+                    # birth version: decisions memoized from here on see
+                    # clean clusters until append()/update() touches them
+                    handle._dirty.setdefault(
+                        (int(n_clusters), int(seed)),
+                        np.full(int(n_clusters), handle.version,
+                                dtype=np.int64))
+                    if self._session_log is not None:
+                        self._session_log.record_precluster(
+                            handle, int(n_clusters), int(seed))
         return self._assign_cache[key]
 
     def _invalidate_oracles(self, table_name: str, ids: np.ndarray) -> None:
@@ -452,23 +487,50 @@ class Session:
                 oracle.memo_clear()
         self.memo.drop_joins(table_name)
 
+    # ------------------------------------------------------- durability log
+    def _log_mutation(self, kind: str, handle: TableHandle, **fields) -> None:
+        """Forward a table mutation to the attached session log (no-op for
+        plain sessions)."""
+        if self._session_log is not None:
+            self._session_log.record_mutation(kind, handle, **fields)
+
     # ---------------------------------------------------------- accounting
     def _absorb(self, delta: OracleStats) -> None:
-        self.stats.merge(delta)
+        with self._lock:
+            self.stats.merge(delta)
 
     def _absorb_proxy(self, delta: OracleStats) -> None:
-        self.proxy_stats.merge(delta)
+        with self._lock:
+            self.proxy_stats.merge(delta)
 
     # ------------------------------------------------- concurrent service
     @property
     def scheduler(self):
-        """The concurrent query scheduler: not ported yet (raises)."""
-        raise NotImplementedError(_SERVICE)
+        """The session's concurrent query scheduler (repro_torch.service),
+        created on first use.  ``submit``/``gather`` are the front door;
+        reach for the scheduler itself for ``holding()`` (batch several
+        submissions into one admission wave) or ``stats``."""
+        if self._scheduler is None:
+            from repro_torch.service.scheduler import QueryScheduler
+            self._scheduler = QueryScheduler(
+                self, coordinator=self.coordinator)
+        return self._scheduler
 
     def submit(self, query, policy: Optional[ExecutionPolicy] = None):
-        """Concurrent execution of ``query``: not ported yet (raises)."""
-        raise NotImplementedError(_SERVICE)
+        """Schedule a query for concurrent execution; returns a
+        ``QueryTicket`` (docs/service.md).  Oracle batches of all in-flight
+        queries are merged into cross-query dispatches; per-query masks and
+        call counts stay bit-identical to serial ``collect()``."""
+        return self.scheduler.submit(query, policy=policy)
 
     def gather(self, *tickets):
-        """Results of submitted queries: not ported yet (raises)."""
-        raise NotImplementedError(_SERVICE)
+        """Wait for submitted queries; returns their ``QueryResult``s (all
+        outstanding tickets when called without arguments)."""
+        return self.scheduler.gather(*tickets)
+
+    def close(self) -> None:
+        """Shut down the scheduler's worker threads (no-op when the
+        concurrent service was never used)."""
+        if self._scheduler is not None:
+            self._scheduler.close()
+            self._scheduler = None

@@ -1,5 +1,6 @@
 """Architecture registry (ported so far: the oracle backbone, a QKV-bias
-dense model and a dense model with sliding-window layers).
+dense model, a dense model with sliding-window layers and the embedding
+encoder).
 
 ``get_config(name)`` returns the full-scale config; ``smoke_config(name)``
 a reduced same-family config that runs a real forward on the CPU.

@@ -12,6 +12,8 @@ _ARCH_MODULES = [
     "llama31_8b",
     # dense with 5:1 sliding-window:global layers (the decode ring buffer)
     "gemma3_12b",
+    # the paper's embedding encoder (repro_torch.embeddings.encoder)
+    "e5_encoder",
 ]
 
 ARCHS: Dict[str, "object"] = {}

@@ -228,6 +228,49 @@ def _recluster_or_fallback(emb, oracle, cfg, pending, depth, result, decided,
         return queue, 0, monotonic() - t_rc
 
 
+def _merge_wave(wave: list, labels_by_cluster: list, votes: dict,
+                depth: int, result, decided, cluster_log: list,
+                undetermined: list, lb: float, ub: float,
+                observe_margin: bool) -> int:
+    """Write one wave's sample labels and vote outcomes back in cluster
+    order, log each cluster and collect its undetermined rows; returns the
+    rows voted.  ``observe_margin`` feeds ``quality.vote_margin``, which
+    the reference observes in unsharded rounds only."""
+    voted_total = 0
+    for i, cp in enumerate(wave):
+        labels = labels_by_cluster[i]
+        result[cp.sample_ids] = labels
+        decided[cp.sample_ids] = True
+        if len(cp.rest_ids) == 0:
+            cluster_log.append({
+                "size": cp.size, "sampled": cp.n_sample,
+                "score": float(np.mean(labels)),
+                "depth": depth, "outcome": "exhausted"})
+            continue
+        vr = votes[i]
+        result[cp.rest_ids[vr.decided_true]] = True
+        decided[cp.rest_ids[vr.decided_true]] = True
+        result[cp.rest_ids[vr.decided_false]] = False
+        decided[cp.rest_ids[vr.decided_false]] = True
+        voted = len(vr.decided_true) + len(vr.decided_false)
+        voted_total += voted
+        if len(vr.undetermined):
+            undetermined.append(cp.rest_ids[vr.undetermined])
+        score = float(np.mean(labels))
+        if observe_margin:
+            _observe_vote_margin(score, lb, ub)
+        cluster_log.append({
+            "size": cp.size, "sampled": cp.n_sample,
+            "score": score,
+            "voted": int(voted),
+            "undetermined": int(len(vr.undetermined)),
+            "depth": depth,
+            "outcome": ("vote" if not len(vr.undetermined)
+                        else "recluster"),
+        })
+    return voted_total
+
+
 def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
                         cluster_log, round_log, queue, device,
                         init_centroids):
@@ -237,23 +280,30 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
     (``repro_torch.distributed.round.shard_clusters``: contiguous, balanced
     by sample count) instead of ``cfg.pipeline_depth`` even waves.  The
     shards share this process and card, so each is a wave: its oracle batch
-    goes through the same FIFO lane in shard order and its outputs are
-    written back in round cluster order, which keeps masks, calls and logs
-    equal to ``shards=1``.
+    goes through the same FIFO lane in shard order, it votes on its own,
+    and a ``gather`` step writes every shard's outputs back in round
+    cluster order, which keeps masks, calls and logs equal to
+    ``shards=1``.  Spans and metrics follow the reference's sharded path
+    (``shard`` tags, the ``gather`` span, ``distributed.*`` metrics, no
+    ``quality.vote_margin``).
     """
     tr = get_tracer()
     lb, ub = cfg.lb, cfg.ub_
+    sharded = cfg.shards > 1
+    tag = "shard" if sharded else "wave"
     n_voted = n_fallback = 0
     rounds_used = 0
     recluster_time = 0.0
     depth = 0
     while queue and depth <= cfg.max_recluster:
+        extra = {"shards": int(cfg.shards)} if sharded else {}
         with tr.span("round", kind="round", depth=depth,
-                     n_clusters=len(queue), executor="round") as rsp:
+                     n_clusters=len(queue), executor="round",
+                     **extra) as rsp:
             t_round = monotonic()
             with tr.span("plan", kind="plan"):
                 plan = plan_round(queue, rng, xi, cfg, depth)
-            if cfg.shards > 1:
+            if sharded:
                 waves = shard_clusters(plan.clusters, cfg.shards)
             else:
                 n_waves = max(1, min(int(cfg.pipeline_depth),
@@ -270,9 +320,13 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
             undetermined = []
             round_voted = 0
             oracle_batches = []
+            outputs = []  # sharded: (shard, labels, votes) for the gather
             try:
                 for k, wave in enumerate(waves):
-                    with tr.span("oracle", kind="oracle", wave=k) as osp:
+                    shard_attrs = ({"n_clusters": len(wave)} if sharded
+                                   else {})
+                    with tr.span("oracle", kind="oracle", **{tag: k},
+                                 **shard_attrs) as osp:
                         if k == 0:
                             # submitting wave 0 here (not before the loop)
                             # keeps submission order — submit(0), submit(1),
@@ -292,48 +346,32 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
                     offsets = np.cumsum([cp.n_sample for cp in wave])[:-1]
                     labels_by_cluster = np.split(flat_labels, offsets)
 
-                    for cp, labels in zip(wave, labels_by_cluster):
-                        result[cp.sample_ids] = labels
-                        decided[cp.sample_ids] = True
-
-                    with tr.span("vote", kind="vote", wave=k,
+                    with tr.span("vote", kind="vote", **{tag: k},
                                  n_clusters=len(wave)):
                         votes = _vote_wave(wave, labels_by_cluster, emb,
                                            cfg, lb, ub, device)
-                        for i, cp in enumerate(wave):
-                            labels = labels_by_cluster[i]
-                            if len(cp.rest_ids) == 0:
-                                cluster_log.append({
-                                    "size": cp.size, "sampled": cp.n_sample,
-                                    "score": float(np.mean(labels)),
-                                    "depth": depth, "outcome": "exhausted"})
-                                continue
-                            vr = votes[i]
-                            result[cp.rest_ids[vr.decided_true]] = True
-                            decided[cp.rest_ids[vr.decided_true]] = True
-                            result[cp.rest_ids[vr.decided_false]] = False
-                            decided[cp.rest_ids[vr.decided_false]] = True
-                            voted = (len(vr.decided_true)
-                                     + len(vr.decided_false))
-                            n_voted += voted
-                            round_voted += voted
-                            if len(vr.undetermined):
-                                undetermined.append(
-                                    cp.rest_ids[vr.undetermined])
-                            score = float(np.mean(labels))
-                            _observe_vote_margin(score, lb, ub)
-                            cluster_log.append({
-                                "size": cp.size, "sampled": cp.n_sample,
-                                "score": score,
-                                "voted": int(voted),
-                                "undetermined": int(len(vr.undetermined)),
-                                "depth": depth,
-                                "outcome": ("vote"
-                                            if not len(vr.undetermined)
-                                            else "recluster"),
-                            })
+                        if not sharded:
+                            round_voted += _merge_wave(
+                                wave, labels_by_cluster, votes, depth,
+                                result, decided, cluster_log, undetermined,
+                                lb, ub, observe_margin=True)
+                    if sharded:
+                        outputs.append((wave, labels_by_cluster, votes))
             finally:
                 dispatcher.close()
+
+            if sharded:
+                # the all-gather point: every shard's sample labels and
+                # vote outcomes merge in shard order (== round cluster
+                # order) before the partition step sees any of them
+                with tr.span("gather", kind="gather", depth=depth,
+                             shards=len(outputs)):
+                    for wave, labels_by_cluster, votes in outputs:
+                        round_voted += _merge_wave(
+                            wave, labels_by_cluster, votes, depth, result,
+                            decided, cluster_log, undetermined, lb, ub,
+                            observe_margin=False)
+            n_voted += round_voted
 
             n_undet = int(sum(len(u) for u in undetermined))
             round_log.append(RoundResult(
@@ -341,10 +379,14 @@ def _run_round_executor(emb, oracle, cfg, rng, xi, result, decided,
                 n_sampled=plan.n_sampled, n_voted=round_voted,
                 n_undetermined=n_undet, waves=len(waves),
                 oracle_batches=oracle_batches,
-                shards=len(waves) if cfg.shards > 1 else 1))
+                shards=len(waves) if sharded else 1))
             rsp.set(n_sampled=plan.n_sampled, n_voted=round_voted,
-                    n_undetermined=n_undet, waves=len(waves))
+                    n_undetermined=n_undet, **{tag + "s": len(waves)})
             tr.metrics.inc("driver.rounds")
+            if sharded:
+                tr.metrics.inc("distributed.sharded_rounds")
+                tr.metrics.observe("distributed.shards_per_round",
+                                   len(waves))
             tr.metrics.observe("round.wall_s", monotonic() - t_round)
 
             if not undetermined:

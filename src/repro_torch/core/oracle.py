@@ -47,7 +47,7 @@ class OracleStats:
 
     def merge(self, other: "OracleStats") -> "OracleStats":
         """Fold another stats object (typically a delta) into this one —
-        the session-level run aggregate of the API layer (a later slice)."""
+        the session-level run aggregate in ``repro_torch.api``."""
         self.n_calls += other.n_calls
         self.n_cached += other.n_cached
         self.input_tokens += other.input_tokens

@@ -40,8 +40,8 @@ class EmbeddingCache:
         self.misses = 0
         self.encoded_rows = 0
         # durability hook: called as hook(keys, rows) after fresh rows are
-        # inserted (a session log appends them so a restart rebuilds the
-        # cache without re-encoding; None until the service is ported)
+        # inserted (repro_torch.service.log appends them so a restart
+        # rebuilds the cache without re-encoding)
         self.hook = None
 
     def __len__(self) -> int:

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -91,9 +92,28 @@ def _compile(out_dir: Path) -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+# guards every wrapper's ``launches`` count: the service launches kernels
+# from several host threads, and ``+=`` on an attribute is not atomic
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (call right after a launch)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source set is new."""
+    """The loaded kernel library, built first if this source set is new.
+    Thread-safe: the first of several threads to launch builds and loads
+    it, the others wait."""
+    with _LOAD_LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
     out_dir = BUILD_DIR / f"kernels-{_digest()}"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / "librepro_torch_kernels.so"
@@ -170,5 +190,10 @@ def require_vector_access(name: str, *tensors: torch.Tensor) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the C entry points take it."""
+    """PyTorch's current stream on ``device``, as the C entry points take it.
+
+    The current stream is per thread.  A thread that sets none (the
+    service's query threads and its dispatch lane) is on the device's
+    default stream, where its tensors were made too, so each kernel runs
+    after the work that produced its inputs."""
     return torch.cuda.current_stream(device).cuda_stream

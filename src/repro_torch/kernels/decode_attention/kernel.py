@@ -49,7 +49,7 @@ def decode_attention_cuda(q, k, v, lengths):
         out.data_ptr(), B, H, KV, L, hd, sb, sc, sl, DTYPE_CODES[q.dtype],
         build.stream_ptr(q.device))
     build.check(err, "decode_attention_fwd")
-    decode_attention_cuda.launches += 1
+    build.count_launch(decode_attention_cuda)
     return out
 
 

@@ -53,7 +53,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
         Sq, Sk, hd, int(causal), 0 if window is None else int(window),
         DTYPE_CODES[q.dtype], strides, build.stream_ptr(q.device))
     build.check(err, "flash_attention_fwd")
-    flash_attention_cuda.launches += 1
+    build.count_launch(flash_attention_cuda)
     return out
 
 

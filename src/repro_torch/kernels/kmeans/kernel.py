@@ -43,7 +43,7 @@ def assign_clusters_cuda(x: torch.Tensor, cents: torch.Tensor):
         n, d, k, DTYPE_CODES[x.dtype], int(build.vector_rows(x)),
         build.stream_ptr(x.device))
     build.check(err, "kmeans_assign")
-    assign_clusters_cuda.launches += 1
+    build.count_launch(assign_clusters_cuda)
     return assign, dmin
 
 

@@ -74,7 +74,7 @@ def _launch(wrapper, x, counts, s_pad, y_pad,
         scores.data_ptr(), n_blocks, m, d, bn,
         int(build.vector_rows(x, s_pad)), build.stream_ptr(x.device))
     build.check(err, "simvote_segmented")
-    wrapper.launches += 1
+    build.count_launch(wrapper)
     return scores
 
 

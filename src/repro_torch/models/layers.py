@@ -8,9 +8,12 @@ Conventions (the reference's)
 - softmax runs in float32 regardless of the parameter type.
 - params are plain nested dicts of tensors.
 
-``attention_decode`` is the decode step's attention: global layers on the
-flash-decoding kernel (``attn_impl="flash"``), sliding-window ring
-buffers in plain torch.  Chunked attention, MoE and Mamba are later
+``attention_chunked`` holds the reference's three chunked schedules
+(banded sliding window, the ``tri`` triangle-packed causal schedule and
+the masked rectangle) as loops over q/kv chunks with an online softmax in
+float32.  ``attention_decode`` is the decode step's attention: global
+layers on the flash-decoding kernel (``attn_impl="flash"``),
+sliding-window ring buffers in plain torch.  MoE and Mamba are later
 slices of the port.
 """
 from __future__ import annotations
@@ -63,6 +66,17 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return y.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d_model: int):
+    """Whisper-style sinusoidal embeddings; positions (..., S) -> (..., S, D)
+    float32."""
+    half = d_model // 2
+    freqs = torch.exp(
+        -torch.arange(half, dtype=torch.float32, device=positions.device)
+        * (math.log(10000.0) / max(1, half - 1)))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -128,6 +142,99 @@ def attention_plain(cfg: ModelConfig, p, x, *, causal: bool, window=None,
     return out @ p["wo"]
 
 
+def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
+                      positions=None):
+    """Flash-style chunked attention in plain torch (online softmax).
+
+    Three schedules, as the reference's:
+      - window (banded, ``cfg.swa_banded``): q-chunk i attends only the kv
+        chunks of its band, the diagonal chunk first;
+      - causal + ``attn_impl == "tri"``: triangle-packed — the (qi, kj)
+        lower-triangle block pairs only, row-major;
+      - otherwise: the rectangle, every kv chunk of every q chunk, masked.
+    The running max, sum and output of each q chunk stay in float32
+    whatever the model type, so a bf16 model adds up as the reference's
+    scan does.  Mask positions are sequence-local (the q rows of the
+    banded schedule take ``positions`` when it has one row per batch row,
+    as the reference's); ``positions`` feeds RoPE.
+    """
+    B, S, _ = x.shape
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    G = cfg.n_heads // KV
+    cq = min(cfg.attn_chunk_q, S)
+    ck = min(cfg.attn_chunk_kv, S)
+    if S % cq or S % ck:
+        raise ValueError(f"attention_chunked: S={S} is not a multiple of "
+                         f"the chunks ({cq}, {ck})")
+    nq, nk = S // cq, S // ck
+    scale = 1.0 / math.sqrt(hd)
+    dev, dt = x.device, x.dtype
+
+    q, k, v = _project_qkv(cfg, p, x)
+    if positions is None:
+        positions = _positions(S, dev)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q.reshape(B, S, -1, hd), positions,
+                       cfg.rope_theta).reshape(q.shape)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    def block(qi_pos, kj, q_blk, m, l, acc):
+        """Online-softmax update of one q chunk by kv chunk ``kj``."""
+        k_blk = k[:, kj * ck:(kj + 1) * ck]
+        v_blk = v[:, kj * ck:(kj + 1) * ck]
+        s = torch.einsum("bqcgh,bkch->bcgqk", q_blk.float(),
+                         k_blk.float()) * scale
+        if causal:
+            kj_pos = torch.arange(ck, device=dev)[None] + kj * ck
+            msk = _causal_window_mask(qi_pos, kj_pos, window)[:, None, None]
+            s = s.masked_fill(~msk, -1e30)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p_ = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + torch.sum(p_, dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum(
+            "bcgqk,bkch->bcgqh", p_.to(dt), v_blk).float()
+        return m_new, l_new, acc_new
+
+    if window is not None and cfg.swa_banded:
+        # banded: only the last wb+1 kv chunks can intersect the window
+        wb = -(-window // ck)  # ceil
+        nband = min(nk, wb + -(-cq // ck))
+
+        def kv_chunks(qi):
+            base = (qi * cq) // ck
+            # kv chunk base - off; the reference clamps negative chunks to
+            # 0 and discards their update, so they are skipped here
+            return [base - off for off in range(nband) if base - off >= 0]
+    elif causal and cfg.attn_impl == "tri":
+        def kv_chunks(qi):
+            hi = ((qi + 1) * cq + ck - 1) // ck  # kv chunks covering <= q end
+            return range(min(hi, nk))
+    else:
+        def kv_chunks(qi):
+            return range(nk)
+
+    out = torch.empty((B, S, KV, G, hd), dtype=dt, device=dev)
+    for qi in range(nq):
+        rows = slice(qi * cq, (qi + 1) * cq)
+        q_blk = q[:, rows]
+        if window is not None and cfg.swa_banded and \
+                positions.shape[0] == B:
+            qi_pos = positions[:, rows]
+        else:
+            qi_pos = torch.arange(cq, device=dev)[None] + qi * cq
+        m = torch.full((B, KV, G, cq), -1e30, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, cq, hd), dtype=torch.float32,
+                          device=dev)
+        for kj in kv_chunks(qi):
+            m, l, acc = block(qi_pos, kj, q_blk, m, l, acc)
+        o = acc / torch.clamp(l[..., None], min=1e-30)    # (B,KV,G,cq,hd)
+        out[:, rows] = o.permute(0, 3, 1, 2, 4).to(dt)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
 def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
                     positions=None):
     """The flash-attention kernel on the prefill/forward hot path.
@@ -161,7 +268,8 @@ def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
 
 def attention_apply(cfg: ModelConfig, p, x, *, causal=True, window=None,
                     positions=None, kv_x=None):
-    """Dispatch plain vs flash by config / seq length (reference routing)."""
+    """Dispatch plain vs chunked vs flash by config / seq length
+    (reference routing)."""
     S = x.shape[1]
     impl = cfg.attn_impl
     if kv_x is not None or not causal:
@@ -179,9 +287,8 @@ def attention_apply(cfg: ModelConfig, p, x, *, causal=True, window=None,
     if S % min(cfg.attn_chunk_q, S) != 0:
         return attention_plain(cfg, p, x, causal=causal, window=window,
                                positions=positions)
-    raise NotImplementedError(
-        f"attn_impl={impl!r} at S={S} takes the chunked attention schedules, "
-        "which are not ported yet (ROADMAP.md queue 1: the model zoo)")
+    return attention_chunked(cfg, p, x, causal=causal, window=window,
+                             positions=positions)
 
 
 # --------------------------------------------------------------------------

@@ -6,8 +6,9 @@ The reference stacks the superblocks along a leading axis and scans over
 them; here ``params["blocks"]`` is a list with one dict per superblock and
 the forward is a Python loop over layers.  The decode cache follows the
 same layout: a list with one ``{"l{i}": {"k", "v"}}`` dict per
-superblock.  Mamba, MoE, encoder-decoder and prefix embeddings are later
-slices of the port.
+superblock.  ``init_layer`` and ``encoder_params_from_jax`` also serve the
+bidirectional encoder (``repro_torch.embeddings.encoder``).  Mamba, MoE,
+encoder-decoder and prefix embeddings are later slices of the port.
 """
 from __future__ import annotations
 
@@ -22,12 +23,23 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.utils.device import resolve_device
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, encoder: bool = False) -> None:
+    """Refuse what the port cannot run.  The ``encoder`` family (the
+    embedding encoder, sinusoidal positions) is admitted only where the
+    encoder asks for it (``encoder=True``); the decoder paths refuse it."""
     for spec in cfg.pattern:
         if spec.kind != "attn" or spec.ffn not in ("dense", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {spec} is not ported yet (Mamba and MoE "
                 "come with the model zoo, ROADMAP.md queue 1)")
+    if encoder:
+        if cfg.family != "encoder":
+            raise ValueError(f"{cfg.name}: not an encoder config "
+                             f"(family {cfg.family!r})")
+        return
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.name}: an encoder config runs through "
+                         "repro_torch.embeddings.encoder, not the decoder")
     if cfg.is_encdec or cfg.num_prefix_embeds or cfg.pos_type != "rope":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder, prefix and sinusoidal models are "
@@ -41,11 +53,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec):
     """(name path, shape, init) of one layer's tensors, in the reference's
-    names; ``init`` is "ones" (norm scale), "zeros" (bias) or the fan-in
-    of a dense weight."""
+    names; ``init`` is "ones" (norm scale), "norm_bias" (LayerNorm bias),
+    "zeros" (bias) or the fan-in of a dense weight."""
     D, hd, F = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    out = [(("norm", "scale"), (D,), "ones"),
+    out = _norm_shapes(cfg, "norm") + [
            (("attn", "wq"), (D, H * hd), D), (("attn", "wk"), (D, KV * hd), D),
            (("attn", "wv"), (D, KV * hd), D), (("attn", "wo"), (H * hd, D),
                                                H * hd)]
@@ -54,13 +66,22 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec):
                 (("attn", "bk"), (KV * hd,), "zeros"),
                 (("attn", "bv"), (KV * hd,), "zeros")]
     if spec.ffn == "dense":
-        out.append((("ffn_norm", "scale"), (D,), "ones"))
+        out += _norm_shapes(cfg, "ffn_norm")
         if cfg.mlp_type == "gelu":
             out += [(("ffn", "w_in"), (D, F), D), (("ffn", "b_in"), (F,), "zeros"),
                     (("ffn", "w_out"), (F, D), F), (("ffn", "b_out"), (D,), "zeros")]
         else:
             out += [(("ffn", "w_gate"), (D, F), D), (("ffn", "w_up"), (D, F), D),
                     (("ffn", "w_down"), (F, D), F)]
+    return out
+
+
+def _norm_shapes(cfg: ModelConfig, name: str):
+    """A norm's tensors: its scale, and for LayerNorm its bias (both
+    float32, as the reference's ``init_norm``)."""
+    out = [((name, "scale"), (cfg.d_model,), "ones")]
+    if cfg.norm_type == "ln":
+        out.append(((name, "bias"), (cfg.d_model,), "norm_bias"))
     return out
 
 
@@ -80,34 +101,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """
     _check_supported(cfg)
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
     D, Vp = cfg.d_model, cfg.padded_vocab
-
-    def normal(shape, fan_in):
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(dt)
-
-    params = {"embed": {"table": normal((Vp, D), D)}, "blocks": []}
-    for _ in range(cfg.n_superblocks):
-        sb = {}
-        for i, spec in enumerate(cfg.pattern):
-            layer: dict = {}
-            for path, shape, init in _layer_shapes(cfg, spec):
-                if init == "ones":  # norm scales stay float32
-                    t = torch.ones(shape, dtype=torch.float32, device=dev)
-                elif init == "zeros":
-                    t = torch.zeros(shape, dtype=dt, device=dev)
-                else:
-                    t = normal(shape, init)
-                _put(layer, path, t)
-            sb[f"l{i}"] = layer
-        params["blocks"].append(sb)
-    params["final_norm"] = {"scale": torch.ones((D,), dtype=torch.float32,
-                                                device=dev)}
+    params = {"embed": {"table": _normal(cfg, generator, dev, (Vp, D), D)},
+              "blocks": [{f"l{i}": init_layer(cfg, spec, generator, dev)
+                          for i, spec in enumerate(cfg.pattern)}
+                         for _ in range(cfg.n_superblocks)],
+              "final_norm": init_norm(cfg, dev)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": normal((Vp, D), Vp)}
+        params["lm_head"] = {"w": _normal(cfg, generator, dev, (Vp, D), Vp)}
     return params
+
+
+def _normal(cfg: ModelConfig, generator, dev, shape, fan_in):
+    """Normal with std 1/sqrt(fan_in), drawn in float32, in ``cfg.dtype``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(getattr(torch,
+                                                              cfg.dtype))
+
+
+def init_norm(cfg: ModelConfig, dev) -> dict:
+    """A norm's parameters: scale ones (and LayerNorm bias zeros), f32."""
+    return {path[-1]: (torch.ones if init == "ones" else torch.zeros)(
+        shape, dtype=torch.float32, device=dev)
+        for path, shape, init in _norm_shapes(cfg, "norm")}
+
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec, generator, dev) -> dict:
+    """One layer's random weights (the reference's names and inits)."""
+    layer: dict = {}
+    for path, shape, init in _layer_shapes(cfg, spec):
+        if init in ("ones", "norm_bias"):  # norms stay float32
+            t = (torch.ones if init == "ones" else torch.zeros)(
+                shape, dtype=torch.float32, device=dev)
+        elif init == "zeros":
+            t = torch.zeros(shape, dtype=getattr(torch, cfg.dtype),
+                            device=dev)
+        else:
+            t = _normal(cfg, generator, dev, shape, init)
+        _put(layer, path, t)
+    return layer
 
 
 def params_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> dict:
@@ -119,6 +152,21 @@ def params_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> dict:
               for k, v in np_tree.items() if k != "blocks"}
     params["blocks"] = [_superblock(np_tree["blocks"], i, dev)
                         for i in range(cfg.n_superblocks)]
+    return params
+
+
+def encoder_params_from_jax(cfg: ModelConfig, np_tree: dict,
+                            device="cuda") -> dict:
+    """The reference's ``init_encoder_params`` tree (numpy arrays, the
+    ``n_layers`` one-layer blocks stacked on a leading axis) as the port's
+    encoder parameters on ``device``: ``params["blocks"]`` is a list of
+    ``{"l0": layer}`` dicts."""
+    _check_supported(cfg, encoder=True)
+    dev = resolve_device(device)
+    params = {k: {n: _from_numpy(a, dev) for n, a in v.items()}
+              for k, v in np_tree.items() if k != "blocks"}
+    params["blocks"] = [_superblock(np_tree["blocks"], i, dev)
+                        for i in range(cfg.n_layers)]
     return params
 
 

@@ -35,7 +35,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from repro_torch.obs.trace import get_tracer
-from repro_torch.plan.expr import And, Not, Or, Pred
 
 # independent seed-stream constant for the audit sampler (spawn-key idiom,
 # like the executor's _PILOT_STREAM) — never shared with driver/pilot/flip
@@ -158,7 +157,8 @@ def audit_labels(oracle, ids: np.ndarray):
         out[np.asarray(missing_pos, dtype=np.int64)] = labels
         try:
             tokens = int(oracle._tokens_of(mids))
-        except AttributeError:  # a duck-typed oracle without token counts
+        except Exception:  # noqa: BLE001 — the audit reports 0 tokens for
+            # any oracle that cannot count them, as the reference does
             tokens = 0
     return out, len(missing), hits, tokens
 
@@ -166,6 +166,10 @@ def audit_labels(oracle, ids: np.ndarray):
 def _eval_expr(expr, leaf_labels: Dict[str, np.ndarray]) -> np.ndarray:
     """Ground-truth composition of the query expression over per-leaf
     oracle labels (the logical semantics the cascade implements)."""
+    # lazy import: repro_torch.plan transitively imports repro_torch.core,
+    # which imports repro_torch.obs — a module-level import here would be
+    # circular
+    from repro_torch.plan.expr import And, Not, Or, Pred
     if isinstance(expr, Pred):
         return leaf_labels[expr.name]
     if isinstance(expr, Not):

@@ -187,6 +187,11 @@ class MetricsRegistry:
             out[name] = v
         return out
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (names sanitized ``.`` -> ``_``)."""
+        from repro_torch.obs.export import registry_to_prometheus
+        return registry_to_prometheus(self)
+
     def _iter_instruments(self) -> Iterable:
         with self._lock:
             yield from sorted(self._metrics.items())
@@ -232,6 +237,9 @@ class NullRegistry:
 
     def snapshot(self):
         return {}
+
+    def to_prometheus(self):
+        return ""
 
 
 class _Null:

@@ -193,6 +193,15 @@ class Tracer:
         with self._lock:
             return list(self._spans)
 
+    # ------------------------------------------------------------- export
+    def export_jsonl(self, path) -> int:
+        from repro_torch.obs.export import write_spans_jsonl
+        return write_spans_jsonl(self.spans(), path)
+
+    def export_perfetto(self, path) -> int:
+        from repro_torch.obs.export import write_perfetto
+        return write_perfetto(self.spans(), path, epoch_mono=self.epoch_mono)
+
 
 # ------------------------------------------------------------ active tracer
 _active: Any = NULL_TRACER

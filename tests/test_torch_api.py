@@ -614,12 +614,18 @@ def test_query_validation(ds):
 
 
 def test_service_is_not_ported(ds):
-    sess = _session("port")
-    q = sess.table(embeddings=ds.embeddings).filter(_oracle("port", ds))
-    for call in (lambda: sess.scheduler, lambda: sess.submit(q),
-                 lambda: sess.gather()):
-        with pytest.raises(NotImplementedError, match="step 7"):
-            call()
+    """The service is ported now: ``submit``/``gather`` give the
+    reference's result for the same query (tests/test_torch_service.py
+    holds the full service cases)."""
+    def run(side):
+        sess = _session(side)
+        q = sess.table(embeddings=ds.embeddings).filter(_oracle(side, ds))
+        try:
+            (r,) = sess.gather(sess.submit(q))
+        finally:
+            sess.close()
+        return _query_fields(r)
+    _both(run)
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(ds,

@@ -9,11 +9,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.api import Session
 from repro_torch.core.csv_filter import semantic_filter
 from repro_torch.core.oracle import SyntheticOracle
 from repro_torch.data import make_dataset
 from repro_torch.configs import smoke_config
+from repro_torch.embeddings import EmbeddingModel
 from repro_torch.serving import ServingEngine
+from repro_torch.service import FilterService, QueryScheduler
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -46,6 +49,11 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.api, repro_torch.plan, repro_torch.core\n"
             "import repro_torch.distributed, repro_torch.embeddings\n"
             "import repro_torch.obs.audit, repro_torch.core.bm25\n"
+            "import repro_torch.service, repro_torch.checkpoint\n"
+            "import repro_torch.obs.health, repro_torch.obs.status\n"
+            "import repro_torch.obs.flight, repro_torch.obs.export\n"
+            "import repro_torch.obs, repro_torch.embeddings.encoder\n"
+            "import repro_torch.distributed.coordinator\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,3 +74,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         ServingEngine(cfg, params={})
     res = semantic_filter(ds.embeddings, oracle, device="cpu")
     assert res.mask.shape == (200,)
+    # the encoder, the scheduler and the service: on the card unless the
+    # caller asks for the CPU (the scheduler and the service run on their
+    # session's device)
+    enc = smoke_config("e5-large")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbeddingModel(enc)
+    for entry in (QueryScheduler, FilterService):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(Session())
+    assert EmbeddingModel(enc, device="cpu").encode(["a b"]).shape == (1, 64)
+    cpu = Session(device="cpu")
+    svc = FilterService(cpu)
+    assert svc.scheduler.session.device.type == "cpu"
+    svc.close()
+    sched = QueryScheduler(Session(device="cpu"))
+    sched.close()
