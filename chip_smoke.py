@@ -78,15 +78,45 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             directory) restored in a new session, and a SessionLogStore run
             cut after three of the five queries, replay at 0 oracle calls
             to the same masks.
+10. stream  standing queries (repro_torch.stream) on the card.  (a) The
+            workload of benchmarks/bench_stream_ingest.py at full data
+            size: the phase-3 table arriving 2,500 rows a tick (20 ticks)
+            under a RateBudget, RV-Q1 and RV-Q3 on SyntheticOracles,
+            csv-sim through the scheduler, a SessionStore checkpoint
+            every 5 ticks; each tick's rows, calls, notifications, wall
+            ms and K1/K3 launches; as the bench, a fresh re-filter of
+            every tick's table (each query's calls logged), whose sum
+            the incremental ticks' must undercut by half; the bench's
+            delivery contract (no duplicate, no final match left silent;
+            vote-flip extras reported against its bound, which the
+            reference itself fails under csv-sim: tests/test_torch_stream
+            .py::test_sim_stream_vote_flips_match_reference).
+            (b) A second watcher stopped after tick 10 through
+            shutdown(), a third restored from its store at 0 calls and 0
+            launches, whose ticks 11-20 must notify (tick, row) and spend
+            calls exactly as (a); its last tick under torch.profiler and
+            cProfile (the queries in one thread for that tick), with the
+            device's busy ms by kind and the host functions with the most
+            own time.  (c) Phase 4's 4,096 rows arriving 512 a tick
+            into an empty table, two ModelOracles on the full-width
+            engine (csv-sim): calls a tick, engine batches, prompts a
+            batch, prefill tokens/s.  (d) repro_torch.launch.watch.main
+            in this process, killed after tick 3 and resumed, against an
+            unkilled run's notification files.  (e)
+            repro_torch.launch.serve.main --service 3 --n 400 --attn-impl
+            flash twice (smoke width, as the CLI always is): the second
+            replays every predicate at 0 LLM calls.  (d) and (e) must put
+            back the signal handlers they install.
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
 blocks, M 101, D 2,048) with its time and bound.
 
-Each kernel wrapper counts its launches.  There are sixteen main-path
-runs: the round executor, the sequential executor, the model path,
-generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
+Each kernel wrapper counts its launches.  There are twenty-one
+main-path runs: the round executor, the sequential executor, the model
+path, generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
 alone), session_repeat, replay, shards, join, model_leaf and
-kmeans_step, and encode, service and service_replay.  The counts are
+kmeans_step, encode, service and service_replay, and phase 10's stream,
+stream_tail, stream_engine, watch_cli and serve_cli.  The counts are
 set to 0 just before each and read just after it, and each run must
 launch its own kernels and no other (round:
 K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
@@ -95,14 +125,20 @@ tokens; session, the leaves alone, session_repeat, shards and join: K1,
 K3; replay: K3, and K1 where a node it runs again re-clusters;
 model_leaf: K1, K3 and K4 = 32 x batches; kmeans_step: K1; encode: K1,
 K3; service: K1, K3 and K4 = 32 x the engine's batches; service_replay:
-K3, and K1 where a node it runs again re-clusters).  Phase 8 must launch
+K3, and K1 where a node it runs again re-clusters; stream: K1, K3;
+stream_tail: K1, K3 in the tail and none in the restore; stream_engine:
+K1, K3 and K4 = 32 x batches; watch_cli: K1 (UniVote); serve_cli: K1
+and K4 = the smoke config's layers x batches, none on the replay).
+Phase 8 must launch
 none.  Checks against plain versions, the join's profiled repeat and
 phase 9's serial, synthetic and state-building runs run outside those
-windows.  The service's query threads and its dispatch lane launch on
-their current stream, the default stream, where their inputs were made.  In the kernels' JSON
-record, "launches" is the sum over the runs and "launches_by_path"
-splits it.  Before it come the numbers of phases 6-9 ({"session": ...},
-{"encode": ...}, {"chunked": ...}, {"service": ...}); the
+windows, as do phase 10's controls and its killed watcher's first ten
+ticks.  The service's query threads and its dispatch lane launch on
+their current stream, the default stream, where their inputs were made.
+In the kernels' JSON record, "launches" is the sum over the runs and
+"launches_by_path" splits it.  Before it come the numbers of phases
+6-10 ({"session": ...}, {"encode": ...}, {"chunked": ...},
+{"service": ...}, {"stream": ...}); the
 second-to-last lines are the kernels' record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -835,6 +871,375 @@ def phase_service(mds, engine, tok, counted, by_path, log, smi, n_layers):
         synthetic_calls=[r.n_llm_calls for r in sp], replay_spent=spent)
 
 
+# phase 10: bench_stream_ingest's workload at full data size
+STREAM_TICK = 2500         # (a) rows a tick, 20 ticks over the 50,000 rows
+STREAM_QUERIES = [("q0_pos", "RV-Q1", 7), ("q1_act", "RV-Q3", 8)]
+STREAM_CONTROL = (5, 10, 15, 20)   # ticks whose own ratio is logged
+STREAM_KILL = 10           # (b) the killed watcher's last tick
+STREAM_TOP = 12            # (b) host functions logged from the last tick
+ENGINE_TICK = 512          # (c) rows of the phase-4 table a tick
+WATCH_PREDICATES = ["the review is positive", "the review praises the acting"]
+
+
+def _tick_log(w, launched, n_ticks=None):
+    """Tick ``w`` until its sources drain (or ``n_ticks``): each tick's
+    summary with its wall ms and its K1, K3 and K4 launches (``launched``,
+    the three wrappers in that order)."""
+    from repro_torch.utils.timing import monotonic
+    out = []
+    while not w.drained and (n_ticks is None or len(out) < n_ticks):
+        before = [fn.launches for fn in launched]
+        t0 = monotonic()
+        s = w.tick()
+        s["wall_ms"] = (monotonic() - t0) * 1e3
+        s["k1"], s["k3"], s["k4"] = [fn.launches - b
+                                     for fn, b in zip(launched, before)]
+        out.append(s)
+    return out
+
+
+def check_delivery(sess, events, texts, tag):
+    """bench_stream_ingest's delivery contract: no duplicate notification
+    and every final match notified (by content key), both required; and
+    the notified rows no longer in the final mask (vote flips as clusters
+    grow), reported against the bench's bound max(2, 5%).  That bound
+    fails on the reference itself under csv-sim: at 4,000 x 256 rows, 400
+    a tick, the reference's RV-Q3 mask ends at 16 of 256 true matches
+    with 207 flips, and the port gives the same ticks, events and masks
+    (tests/test_torch_stream.py::test_sim_stream_vote_flips_match_
+    reference).  So it is reported here, not required."""
+    from repro_torch.stream import row_key
+    out = {}
+    for name, evs in events.items():
+        rows = [e["row"] for e in evs]
+        keys = {e["key"] for e in evs}
+        final = [int(i) for i in
+                 sess["feed"].filter(name).collect().mask.nonzero()[0]]
+        silent = [i for i in final if row_key(texts[i], None) not in keys]
+        extra = set(rows) - set(final)
+        out[name] = dict(notified=len(rows), final=len(final),
+                         silent=len(silent), extra=len(extra),
+                         extra_bound=max(2, 0.05 * len(rows)))
+        if len(rows) != len(set(rows)) or silent:
+            raise AssertionError(f"[{tag}] {name}: delivery contract broken "
+                                 f"{out[name]}")
+    return out
+
+
+def phase_stream(ds, mds, engine, tok, counted, by_path, log, smi, n_layers,
+                 dev="cuda"):
+    """Phase 10 (a)-(c): standing queries on the card.  (a) the stream of
+    benchmarks/bench_stream_ingest.py over the 50,000-row table, 2,500
+    rows a tick, against a fresh re-filter at four ticks; (b) a second
+    watcher killed after tick 10 and a third restored from its store at 0
+    calls and 0 launches, whose tail must equal (a)'s; (c) phase 4's 4,096
+    rows arriving 512 a tick into an empty table with two ModelOracles on
+    the full-width engine."""
+    import cProfile
+    import pathlib
+    import pstats
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import ExecutionPolicy, Session
+    from repro_torch.core.oracle import ModelOracle, SyntheticOracle
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.kmeans.kernel import assign_clusters_cuda
+    from repro_torch.kernels.simvote.kernel import \
+        simvote_scores_segmented_cuda
+    from repro_torch.obs.trace import Tracer, use_tracer
+    from repro_torch.service.store import SessionStore
+    from repro_torch.stream import (CallbackSink, RateBudget, StreamWatcher,
+                                    SyntheticSource)
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = (assign_clusters_cuda, simvote_scores_segmented_cuda,
+               flash_attention_cuda)
+    pol = ExecutionPolicy(n_clusters=4, xi=0.005, method="csv-sim")
+    n = len(ds.texts)
+    out = {}
+
+    def watcher(store_dir):
+        sess = Session(policy=pol, device=dev)
+        for name, key, seed in STREAM_QUERIES:
+            sess.register_oracle(name, SyntheticOracle(
+                ds.labels[key], flip_prob=0.0, seed=seed,
+                token_lens=ds.token_lens))
+        w = StreamWatcher(sess, table_name="feed",
+                          store=SessionStore(store_dir), checkpoint_every=5)
+        w.add_source(SyntheticSource("feed0", texts=list(ds.texts),
+                                     embeddings=ds.embeddings,
+                                     arrive_per_tick=STREAM_TICK, seed=3),
+                     RateBudget(rows_per_tick=STREAM_TICK))
+        events = {name: [] for name, _, _ in STREAM_QUERIES}
+        for name, evs in events.items():
+            w.register(name, sink=CallbackSink(evs.append))
+        return sess, w, events
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the whole stream, ticks logged one by one
+        sess, w, events = watcher(f"{tmp}/a")
+        ticks = counted("stream", lambda: _tick_log(w, kernels),
+                        {"kmeans_assign", "simvote_scores_segmented"})
+        for s in ticks:
+            log(f"[stream] tick {s['tick']}: +{s['rows']} rows, "
+                f"{s['oracle_calls']} calls, {s['notified']} notified, "
+                f"{s['wall_ms']:.1f} ms, K1 {s['k1']}, K3 {s['k3']}")
+        delivery = check_delivery(sess, events, ds.texts, "stream")
+        sess.close()
+        if len(ticks) != n // STREAM_TICK or any(s["k4"] for s in ticks):
+            raise AssertionError(f"the stream took {len(ticks)} ticks")
+        # the bench's control: every tick's table re-filtered in a fresh
+        # session, each query's calls kept apart
+        control = []
+        for t in range(1, len(ticks) + 1):
+            c = Session(policy=pol, device=dev)
+            h = c.table(texts=list(ds.texts[:t * STREAM_TICK]),
+                        embeddings=ds.embeddings[:t * STREAM_TICK],
+                        name="feed")
+            control.append([h.filter(name, SyntheticOracle(
+                ds.labels[key], flip_prob=0.0, seed=seed,
+                token_lens=ds.token_lens)).collect().n_llm_calls
+                for name, key, seed in STREAM_QUERIES])
+            c.close()
+        inc = [s["oracle_calls"] for s in ticks]
+        ctl = [sum(c) for c in control]
+        ratio = sum(inc) / sum(ctl)
+        walls = [s["wall_ms"] for s in ticks]
+        log(f"[stream] {len(ticks)} ticks of {STREAM_TICK} rows, 2 standing "
+            f"queries: {sum(inc)} calls, "
+            f"{sum(s['notified'] for s in ticks)} notified, ms a tick mean "
+            f"{np.mean(walls):.1f} (first {walls[0]:.1f}, last "
+            f"{walls[-1]:.1f}); a fresh re-filter at every tick: {sum(ctl)} "
+            f"calls, {[sum(c) for c in zip(*control)]} by query, per tick "
+            f"{control}; incremental over re-filter {ratio:.4f}, at ticks "
+            f"{STREAM_CONTROL} "
+            f"{[round(inc[t - 1] / ctl[t - 1], 4) for t in STREAM_CONTROL]}"
+            f"; delivery {delivery}  [{smi}]")
+        if not ratio < 0.5:
+            raise AssertionError("incremental ticks are not below half the "
+                                 "fresh re-filters' calls")
+        out["stream"] = dict(ticks=ticks, control=control, delivery=delivery,
+                             ratio=ratio)
+
+        # ---- (b) a watcher killed after tick 10, a fresh one restored
+        sess_k, w_k, ev_k = watcher(f"{tmp}/b")
+        _tick_log(w_k, kernels, STREAM_KILL)
+        w_k.shutdown()
+        sess_k.close()
+        sess_r, w_r, ev_r = watcher(f"{tmp}/b")
+
+        def tail():
+            report = w_r.restore()
+            rebuilt = [fn.launches for fn in kernels]
+            rows = _tick_log(w_r, kernels, n // STREAM_TICK - STREAM_KILL - 1)
+            # the last tick under torch.profiler and cProfile: where a
+            # tick's time goes.  cProfile sees one thread, so this tick runs
+            # the queries in this one; the scheduler runs the same work.
+            w_r.use_scheduler = False
+            host = cProfile.Profile()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                host.enable()
+                rows += _tick_log(w_r, kernels, 1)
+                host.disable()
+                torch.cuda.synchronize()
+            return report, rebuilt, rows, prof, host
+
+        report, rebuilt, tail_ticks, prof, host = counted(
+            "stream_tail", tail, {"kmeans_assign", "simvote_scores_segmented"})
+        calls_rebuild = sess_r.stats.n_calls - sum(
+            s["oracle_calls"] for s in tail_ticks)
+        sess_r.close()
+        busy = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kind = ("K3" if "simvote_kernel" in e.name
+                    else "K1" if "assign_kernel" in e.name
+                    else "HtoD" if "HtoD" in e.name
+                    else "DtoH" if "DtoH" in e.name else "other")
+            busy[kind] = busy.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+        last_ms = tail_ticks[-1]["wall_ms"]
+        same = all([(e["tick"], e["row"]) for e in ev_r[q]]
+                   == [(e["tick"], e["row"]) for e in events[q]
+                       if e["tick"] > STREAM_KILL] for q in events)
+        same_calls = [s["oracle_calls"] for s in tail_ticks] == \
+            [s["oracle_calls"] for s in ticks[STREAM_KILL:]]
+        log(f"[stream_tail] restored at tick {w_r.stats.n_ticks - len(tail_ticks)}"
+            f" ({report}): {calls_rebuild} oracle calls and launches "
+            f"{rebuilt} to rebuild; ticks {STREAM_KILL + 1}-"
+            f"{tail_ticks[-1]['tick']}: notified as the unkilled run {same}, "
+            f"calls a tick as the unkilled run {same_calls}; the last tick "
+            f"under torch.profiler: wall {last_ms:.1f} ms, device busy "
+            f"{sum(busy.values()):.2f} ms "
+            f"({', '.join(f'{k} {v:.2f}' for k, v in sorted(busy.items()))})"
+            f", idle share {1 - sum(busy.values()) / last_ms:.4f}  [{smi}]")
+        own = sorted(((v[2], f"{pathlib.Path(k[0]).name}:{k[1]}({k[2]})")
+                      for k, v in pstats.Stats(host).stats.items()),
+                     reverse=True)[:STREAM_TOP]
+        log(f"[stream_tail] the last tick's host functions by own time "
+            f"(cProfile on, queries in one thread): "
+            + ", ".join(f"{name} {t * 1e3:.1f} ms" for t, name in own)
+            + f"  [{smi}]")
+        if calls_rebuild or any(rebuilt) or not same or not same_calls:
+            raise AssertionError("the restored watcher spent calls or "
+                                 "launches to rebuild, or its tail differs")
+        out["stream_tail"] = dict(rebuild_calls=calls_rebuild,
+                                  rebuild_launches=rebuilt,
+                                  ticks=[s["wall_ms"] for s in tail_ticks],
+                                  last_tick_busy_ms=busy,
+                                  last_tick_ms=last_ms,
+                                  last_tick_host_ms={name: t * 1e3
+                                                     for t, name in own})
+
+    # ---- (c) the engine: an empty table, phase 4's rows 512 a tick
+    esess = Session(policy=ExecutionPolicy(n_clusters=4, min_sample=25,
+                                           method="csv-sim"), device=dev)
+    handle = esess.table(texts=[], embeddings=np.zeros(
+        (0, mds.embeddings.shape[1]), np.float32), name="feed")
+    for i, pred in enumerate(WATCH_PREDICATES):
+        # the table copies the texts it is given: the oracles read its list
+        esess.register_oracle(f"p{i}", ModelOracle(engine, tok, pred,
+                                                   handle._table.texts))
+    ew = StreamWatcher(esess, table_name="feed")
+    ew.add_source(SyntheticSource("feed0", texts=list(mds.texts),
+                                  embeddings=mds.embeddings,
+                                  arrive_per_tick=ENGINE_TICK, seed=11),
+                  RateBudget(rows_per_tick=ENGINE_TICK))
+    e_events = {f"p{i}": [] for i in range(len(WATCH_PREDICATES))}
+    for name, evs in e_events.items():
+        ew.register(name, sink=CallbackSink(evs.append))
+    tracer = Tracer()
+    st0 = dict(engine.stats)
+
+    def engine_ticks():
+        with use_tracer(tracer):
+            rows = []
+            while not ew.drained:
+                b0 = engine.stats["batches"]
+                rows += _tick_log(ew, kernels, 1)
+                rows[-1]["batches"] = engine.stats["batches"] - b0
+            return rows
+
+    eticks = counted("stream_engine", engine_ticks,
+                     {"kmeans_assign", "simvote_scores_segmented",
+                      "flash_attention"})
+    esess.close()
+    batches = engine.stats["batches"] - st0["batches"]
+    prompts = engine.stats["batched_prompts"] - st0["batched_prompts"]
+    tokens = engine.stats["prefill_tokens"] - st0["prefill_tokens"]
+    tick_s = sum(sp.duration_s for sp in tracer.spans()
+                 if sp.kind == "engine_tick")
+    k4 = by_path["stream_engine"]["flash_attention"]
+    for s in eticks:
+        log(f"[stream_engine] tick {s['tick']}: +{s['rows']} rows, "
+            f"{s['oracle_calls']} calls in {s['batches']} engine batches, "
+            f"{s['notified']} notified, {s['wall_ms']:.1f} ms, K1 {s['k1']}, "
+            f"K3 {s['k3']}, K4 {s['k4']}")
+    log(f"[stream_engine] {len(eticks)} ticks of {ENGINE_TICK} rows, 2 "
+        f"ModelOracles on {engine.cfg.name} ({n_layers} layers, "
+        f"{engine.cfg.dtype}, {engine.cfg.attn_impl}): {sum(s['oracle_calls'] for s in eticks)} calls, {batches} "
+        f"engine batches, {prompts / max(1, batches):.2f} prompts a batch, "
+        f"{tokens} prefill tokens in {tick_s:.2f} s of engine_tick spans = "
+        f"{tokens / tick_s:.0f} prefill tokens/s, K4 {k4}  [{smi}]")
+    if k4 != n_layers * batches or len(eticks) != len(mds.texts) // ENGINE_TICK:
+        raise AssertionError(f"stream_engine: K4 launched {k4} times, not "
+                             f"{n_layers} x {batches} batches")
+    out["stream_engine"] = dict(
+        ticks=eticks, batches=batches, prompts_a_batch=prompts / batches,
+        prefill_tokens_s=tokens / tick_s, k4=k4)
+    return out
+
+
+def phase_cli(counted, by_path, log, smi):
+    """Phase 10 (d)-(e): the launchers in this process.  ``watch`` killed
+    after tick 3 and resumed, whose notification files must equal an
+    unkilled run's; ``serve --service 3`` twice, the second replaying
+    every predicate at 0 LLM calls.  Each must put the signal handlers it
+    installs back."""
+    import contextlib
+    import io
+    import pathlib
+    import signal
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch import serve, watch
+
+    handlers = lambda: [signal.getsignal(s)  # noqa: E731
+                        for s in (signal.SIGINT, signal.SIGTERM)]
+    before = handlers()
+
+    def cli(tag, main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ret = main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"[{tag}]   {line}")
+        if handlers() != before:
+            raise AssertionError(f"{tag} left its signal handlers installed")
+        return buf.getvalue(), ret
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--n", "240", "--queries", "2"]
+        killed = ["--state-dir", f"{tmp}/w"]
+
+        def watch_runs():
+            first = cli("watch_cli", watch.main,
+                        common + killed + ["--kill-after", "3"])[0]
+            second = cli("watch_cli", watch.main, common + killed)[0]
+            cli("watch_cli", watch.main, common + ["--state-dir",
+                                                   f"{tmp}/fresh"])
+            return first, second
+
+        first, second = counted("watch_cli", watch_runs, {"kmeans_assign"})
+        files = {d: [pathlib.Path(f"{tmp}/{d}/notify_p{i}.jsonl").read_text()
+                     for i in range(2)] for d in ("w", "fresh")}
+        ok = ("0 oracle calls to rebuild" in second
+              and "resumed done" in second and "stopping mid-stream" in first
+              and files["w"] == files["fresh"])
+        log(f"[watch_cli] killed after tick 3 and resumed: rebuild and resume "
+            f"lines printed, notify files equal to an unkilled run's: {ok}")
+        if not ok:
+            raise AssertionError("watch_cli: resume lines or notify files")
+        out["watch_cli"] = dict(notified=[f.count("\n") for f in files["w"]])
+
+        argv = ["--service", "3", "--n", "400", "--attn-impl", "flash",
+                "--state-dir", f"{tmp}/s"]
+
+        def serve_runs():
+            text1, (engine, _, res1) = cli("serve_cli", serve.main, argv)
+            k4 = flash_attention_cuda.launches
+            text2, (_, _, res2) = cli("serve_cli", serve.main, argv)
+            return (text1, engine, res1, k4, text2, res2,
+                    flash_attention_cuda.launches - k4)
+
+        text1, engine, res1, k4, text2, res2, k4_replay = counted(
+            "serve_cli", serve_runs, {"kmeans_assign", "flash_attention"})
+        layers = smoke_config("llama3.1-8b").n_layers
+        passes = [int(r.mask.sum()) for r in res1]
+        replayed = all(f"{p}/400 pass; 0 LLM calls, 400 replayed" in text2
+                       for p in passes) and \
+            [int(r.mask.sum()) for r in res2] == passes
+        log(f"[serve_cli] smoke llama3.1-8b ({layers} layers, flash): "
+            f"{[r.n_llm_calls for r in res1]} LLM calls, passes {passes}, "
+            f"{engine.stats['batches']} engine batches, K4 {k4}; rerun "
+            f"replays every predicate at 0 LLM calls: {replayed}, K4 "
+            f"{k4_replay}")
+        if k4 != layers * engine.stats["batches"] or k4_replay or not replayed:
+            raise AssertionError("serve_cli: K4 against batches, or the "
+                                 "replay")
+        out["serve_cli"] = dict(calls=[r.n_llm_calls for r in res1],
+                                passes=passes,
+                                batches=engine.stats["batches"], k4=k4)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1411,6 +1816,12 @@ def main() -> int:
     service = phase_service(mds, engine, tok, counted, by_path, log, smi,
                             cfg.n_layers)
     log(json.dumps({"service": service}))
+
+    # --------------------------------------------------------- 10. stream
+    stream = phase_stream(ds, mds, engine, tok, counted, by_path, log, smi,
+                          cfg.n_layers)
+    stream.update(phase_cli(counted, by_path, log, smi))
+    log(json.dumps({"stream": stream}))
 
     kernels = []
     for name, rec in record.items():
