@@ -107,16 +107,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             flash twice (smoke width, as the CLI always is): the second
             replays every predicate at 0 LLM calls.  (d) and (e) must put
             back the signal handlers they install.
+11. zoo     the model zoo, after phase 4's llama3.1-8b is released.  (a)
+            jamba-v0.1-52b at published widths cut to 2 of its 4
+            superblocks (16 of 32 layers: 14 Mamba, 2 attention, 8 MoE
+            FFNs of 16 experts), bf16, random weights from a torch seed,
+            attn_impl="flash": phase 4's ModelOracle filter over the
+            4,096 tuples (csv-sim) through ServingEngine(max_batch=64),
+            then generate (128 prompts, 32 new tokens); K4 and K5 against
+            their plain versions at every served shape; the yes/no logits
+            of 256 prompts against "flash-ref" (ZOO_LIMIT) with the MoE
+            routing flips counted and reported; prefill and decode
+            tokens/s, a decode step's wall, device busy time and idle
+            share (torch.profiler), peak memory.  (b) whisper-base at full
+            width and depth, bf16: lm.prefill over 1,500 encoder frames
+            (batch 8, a 64-token prompt), 16 decode steps, K4 and K5 at hd
+            64 and plain cross-attention, against "flash-ref"
+            teacher-forced (DECODE_LIMIT).  (c) internvl2-26b at published
+            widths, 2 layers, bf16: lm.forward over 256 prefix embeddings
+            and 128 text tokens (K4 at H 48, S 384) against "flash-ref"
+            (VLM_LIMIT).
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
 blocks, M 101, D 2,048) with its time and bound.
 
-Each kernel wrapper counts its launches.  There are twenty-one
+Each kernel wrapper counts its launches.  There are twenty-five
 main-path runs: the round executor, the sequential executor, the model
 path, generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
 alone), session_repeat, replay, shards, join, model_leaf and
-kmeans_step, encode, service and service_replay, and phase 10's stream,
-stream_tail, stream_engine, watch_cli and serve_cli.  The counts are
+kmeans_step, encode, service and service_replay, phase 10's stream,
+stream_tail, stream_engine, watch_cli and serve_cli, and phase 11's
+zoo_model, zoo_generate, zoo_whisper and zoo_vlm.  The counts are
 set to 0 just before each and read just after it, and each run must
 launch its own kernels and no other (round:
 K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
@@ -128,7 +148,10 @@ K3; service: K1, K3 and K4 = 32 x the engine's batches; service_replay:
 K3, and K1 where a node it runs again re-clusters; stream: K1, K3;
 stream_tail: K1, K3 in the tail and none in the restore; stream_engine:
 K1, K3 and K4 = 32 x batches; watch_cli: K1 (UniVote); serve_cli: K1
-and K4 = the smoke config's layers x batches, none on the replay).
+and K4 = the smoke config's layers x batches, none on the replay;
+zoo_model: K1, K3 and K4 = 2 x batches (jamba's two attention layers);
+zoo_generate: K4 = 2 x batches and K5 = 2 x decode steps; zoo_whisper:
+K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2).
 Phase 8 must launch
 none.  Checks against plain versions, the join's profiled repeat and
 phase 9's serial, synthetic and state-building runs run outside those
@@ -137,11 +160,12 @@ ticks.  The service's query threads and its dispatch lane launch on
 their current stream, the default stream, where their inputs were made.
 In the kernels' JSON record, "launches" is the sum over the runs and
 "launches_by_path" splits it.  Before it come the numbers of phases
-6-10 ({"session": ...}, {"encode": ...}, {"chunked": ...},
-{"service": ...}, {"stream": ...}); the
+6-11 ({"session": ...}, {"encode": ...}, {"chunked": ...},
+{"service": ...}, {"stream": ...}, {"zoo": ...}); the
 second-to-last lines are the kernels' record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
+import gc
 import json
 import os
 import re
@@ -1240,6 +1264,435 @@ def phase_cli(counted, by_path, log, smi):
     return out
 
 
+# phase 11: the model zoo on the card
+ZOO_SUPERBLOCKS = 2        # (a) jamba superblocks of 8 layers: 16 of 32
+# (a) yes/no logits, kernels against plain: bf16 rounding through 16
+# layers moves 2.2% of the MoE routing choices, and the logits by 0.72 at
+# most over 256 prompts on an H100 (PERF.md); the limit is about three
+# times that
+ZOO_LIMIT = 2.0
+WHISPER_B, WHISPER_S, WHISPER_STEPS = 8, 64, 16   # (b) batch, prompt, steps
+VLM_B, VLM_TEXT = 4, 128   # (c) batch, text tokens after the 256 prefix
+VLM_LIMIT = 0.2            # (c) logits, kernels against plain: 0.063 on
+                           # an H100 (PERF.md), about three times that
+PROFILE_STEPS = 4          # (a) decode steps under torch.profiler
+
+
+def _peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _released(log):
+    """Device memory the earlier phases left allocated (GiB), and the live
+    threads.  Fails above 4 GiB (phase 4's llama3.1-8b alone is 15 GiB),
+    naming the largest tensors still alive and what holds each."""
+    import threading
+
+    import torch
+    left = torch.cuda.memory_allocated() / 2**30
+    names = sorted(t.name for t in threading.enumerate())
+    log(f"[zoo] before phase 11: {left:.2f} GiB still allocated, "
+        f"{len(names)} threads {names}")
+    if left > 4.0:
+        big = sorted((o for o in gc.get_objects()
+                      if isinstance(o, torch.Tensor) and o.is_cuda),
+                     key=lambda t: -t.numel() * t.element_size())[:3]
+        held = [(tuple(t.shape), sorted({type(r).__name__
+                                         for r in gc.get_referrers(t)}))
+                for t in big]
+        raise AssertionError(f"{left:.1f} GiB not released before phase "
+                             f"11; largest tensors and their holders: {held}")
+    return left
+
+
+def _busy_ms(fn, calls: int):
+    """Device busy ms a call of fn (the sum of its kernels' times under
+    torch.profiler, over ``calls`` calls) and its launches a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls,
+            len(kernels) / calls)
+
+
+def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
+    """Phase 11: the model zoo on the card.  (a) jamba-v0.1-52b at
+    published widths cut to 2 of its 4 superblocks (16 of 32 layers:
+    Mamba, MoE and attention), bf16, random weights, attn_impl="flash":
+    phase 4's ModelOracle filter over the 4,096 tuples (K1, K3, K4 = 2 x
+    batches), generate (128 prompts, 32 new tokens; K4 = 2 x batches, K5 =
+    2 x decode steps), K4 and K5 against their plain versions at every
+    served shape, the yes/no logits of 256 prompts against "flash-ref"
+    with the MoE routing flips counted, a decode step's wall and idle
+    share, peak memory.  (b) whisper-base at full width and depth, bf16:
+    lm.prefill over 1,500 encoder frames, 16 decode steps (K4 and K5 at hd
+    64, cross-attention plain) against "flash-ref" teacher-forced.  (c)
+    internvl2-26b at published widths, 2 layers, bf16: lm.forward over
+    256 prefix embeddings and 128 text tokens (K4 at H 48, S 384) against
+    "flash-ref"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.csv_filter import CSVConfig, semantic_filter
+    from repro_torch.core.oracle import ModelOracle
+    from repro_torch.data import HashTokenizer
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers, lm
+    from repro_torch.obs.trace import Tracer, use_tracer
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.batcher import BucketBatcher
+    from repro_torch.utils.timing import monotonic
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+
+    def check_k4(shapes, tag):
+        """K4 against its plain version at bf16 (batch, H, KV, S, hd)
+        shapes, on the strided views the model passes."""
+        for b, H, KV, S, hd in shapes:
+            q, k, v = (torch.randn((b, S, n, hd), generator=g, device=dev)
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for n in (H, KV, KV))
+            torch.testing.assert_close(
+                flash_attention_cuda(q, k, v).float(),
+                flash_attention_ref(q, k, v).float(), rtol=2e-2, atol=2e-2)
+        log(f"[zoo] {tag}: flash_attention within 2e-2 of its plain version "
+            f"at (batch, H, KV, S, hd) {shapes}")
+
+    def check_k5(shapes, tag):
+        """K5 against its plain version at bf16 (batch, H, KV, L, hd)
+        shapes: the model's (b, L, KV, hd) cache permuted, ragged
+        lengths."""
+        for b, H, KV, L, hd in shapes:
+            qd = torch.randn((b, H, hd), generator=g,
+                             device=dev).to(torch.bfloat16)
+            kd, vd = (torch.randn((b, L, KV, hd), generator=g, device=dev)
+                      .to(torch.bfloat16).permute(0, 2, 1, 3)
+                      for _ in range(2))
+            lens = torch.randint(1, L + 1, (b,), generator=g, device=dev)
+            lens[0], lens[-1] = 1, L
+            lens = lens.to(torch.int32)
+            torch.testing.assert_close(
+                decode_attention_cuda(qd, kd, vd, lens).float(),
+                decode_attention_ref(qd, kd, vd, lens).float(),
+                rtol=2e-2, atol=2e-2)
+        log(f"[zoo] {tag}: decode_attention within 2e-2 of its plain version "
+            f"at (batch, H, KV, L, hd) {shapes}")
+
+    # ------------------------------------------------ (a) jamba-v0.1-52b
+    base = get_config("jamba-v0.1-52b")
+    cfg = base.replace(n_layers=ZOO_SUPERBLOCKS * len(base.pattern),
+                       attn_impl="flash")
+    left = _released(log)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = monotonic()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_attn = cfg.n_superblocks * sum(s.kind == "attn" for s in cfg.pattern)
+    n_moe = cfg.n_superblocks * sum(s.ffn == "moe" for s in cfg.pattern)
+    weights_gib = torch.cuda.memory_allocated() / 2**30 - left
+    log(f"[zoo] {cfg.name}: {cfg.n_layers} of {base.n_layers} layers "
+        f"({n_attn} attention, {cfg.n_layers - n_attn} Mamba, {n_moe} MoE of "
+        f"{cfg.n_experts} experts top-{cfg.top_k}), d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.param_count() / 1e9:.2f} B params in "
+        f"{cfg.dtype}, init {monotonic() - t0:.1f} s, {weights_gib:.1f} GiB "
+        f"on the card")
+    tok = HashTokenizer(cfg.vocab_size)
+    engine = ServingEngine(cfg, params, max_batch=64, device=dev)
+    oracle = ModelOracle(engine, tok, "the review is positive", mds.texts)
+    tracer = Tracer()
+    t0 = monotonic()
+    with use_tracer(tracer):
+        res = counted("zoo_model", lambda: semantic_filter(
+            mds.embeddings, oracle, CSVConfig(n_clusters=4, vote="sim"),
+            device=dev),
+            {"kmeans_assign", "simvote_scores_segmented", "flash_attention"})
+    wall = monotonic() - t0
+    engine_s = sum(sp.duration_s for sp in tracer.spans()
+                   if sp.kind == "engine_tick")
+    st = dict(engine.stats)
+    served = sorted({(sp.attrs["batch"], sp.attrs["bucket_len"])
+                     for sp in tracer.spans() if sp.kind == "engine_tick"})
+    prefill_tps = st["prefill_tokens"] / engine_s
+    padded_tps = sum(sp.attrs["batch"] * sp.attrs["bucket_len"]
+                     for sp in tracer.spans()
+                     if sp.kind == "engine_tick") / engine_s
+    log(f"[zoo] filter: {res.n_llm_calls} LLM calls for {len(mds.texts)} "
+        f"tuples, {res.n_voted} voted, wall {wall:.2f} s; engine "
+        f"{st['batches']} batches at (batch, bucket) {served}, "
+        f"{st['prefill_tokens']} prefill tokens in {engine_s:.2f} s = "
+        f"{prefill_tps:.0f} prefill tokens/s ({padded_tps:.0f} padded)  "
+        f"[{smi}]")
+    if res.n_llm_calls + res.n_voted != len(mds.texts):
+        raise AssertionError("calls + votes do not cover the table")
+    if by_path["zoo_model"]["flash_attention"] != n_attn * st["batches"]:
+        raise AssertionError(
+            f"flash launches {by_path['zoo_model']['flash_attention']} != "
+            f"{n_attn} x {st['batches']} batches")
+    check_k4([(b, cfg.n_heads, cfg.n_kv_heads, s, cfg.resolved_head_dim)
+              for b, s in served], "jamba prefill")
+
+    gen_prompts = oracle.pack_prompts(range(N_GEN))
+    tracer = Tracer()
+    decoded = engine.stats["decode_tokens"]
+    with use_tracer(tracer):
+        streams = counted("zoo_generate", lambda: engine.generate(
+            gen_prompts, max_new=MAX_NEW),
+            {"flash_attention", "decode_attention"})
+    ticks = [sp for sp in tracer.spans()
+             if sp.kind == "engine_tick" and sp.attrs["phase"] == "generate"]
+    gen_s = sum(sp.duration_s for sp in ticks)
+    decoded = engine.stats["decode_tokens"] - decoded
+    gen_served = sorted({(sp.attrs["batch"], sp.attrs["bucket_len"])
+                         for sp in ticks})
+    launches = by_path["zoo_generate"]
+    log(f"[zoo] generate: {N_GEN} prompts, {MAX_NEW} new tokens each, "
+        f"{len(ticks)} batches at (batch, bucket) {gen_served}: {decoded} "
+        f"decode tokens in {gen_s:.3f} s of engine_tick spans = "
+        f"{decoded / gen_s:.1f} decode tokens/s  [{smi}]")
+    if [len(s) for s in streams] != [MAX_NEW] * N_GEN or \
+            not all(0 <= t < cfg.padded_vocab for s in streams for t in s):
+        raise AssertionError("generate returned malformed streams")
+    if launches["flash_attention"] != n_attn * len(ticks) or \
+            launches["decode_attention"] != n_attn * len(ticks) * MAX_NEW:
+        raise AssertionError(
+            f"generate launched K4 {launches['flash_attention']} and K5 "
+            f"{launches['decode_attention']} times over {len(ticks)} batches")
+    check_k5([(b, cfg.n_heads, cfg.n_kv_heads, s + 64, cfg.resolved_head_dim)
+              for b, s in gen_served], "jamba decode")
+
+    # a decode step: wall (synchronised) and the device's busy share under
+    # torch.profiler, from one batch's prefill cache
+    idx, toks, lens = BucketBatcher(max_batch=64).plan(gen_prompts)[0]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        h, cache, _ = lm.prefill_hidden(cfg, params,
+                                        torch.from_numpy(toks).to(dev),
+                                        max_len=toks.shape[1] + 64)
+        pos = torch.from_numpy(lens).to(dev)
+        cur = torch.argmax(lm.hidden_logits(
+            cfg, params, h[torch.arange(len(idx), device=dev), pos - 1]),
+            dim=-1)
+        torch.cuda.synchronize()
+        prefill_ms = (monotonic() - t0) * 1e3
+        del h
+
+        def step():
+            nonlocal cache, pos, cur
+            logits, cache = lm.decode_step(cfg, params, cache, cur, pos)
+            pos, cur = pos + 1, torch.argmax(logits, dim=-1)
+
+        step()
+        walls = []  # three rounds: host time varies between rounds
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = monotonic()
+            for _ in range(PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+            walls.append((monotonic() - t0) * 1e3 / PROFILE_STEPS)
+        step_ms = sorted(walls)[1]
+        busy_ms, step_launches = _busy_ms(step, PROFILE_STEPS)
+        del cache
+    step_bound_ms = sum(t.numel() * t.element_size()
+                        for sb in params["blocks"] for layer in sb.values()
+                        for d in layer.values()
+                        for t in d.values()) / HBM_BYTES_S * 1e3
+    log(f"[zoo] a decode step at batch {len(idx)} (cache {toks.shape[1] + 64}"
+        f"): wall {step_ms:.2f} ms (median of "
+        f"{[round(w, 2) for w in walls]}), kernels busy {busy_ms:.2f} ms, idle "
+        f"share {1 - busy_ms / step_ms:.4f}, {step_launches:.0f} launches;"
+        f" its layer weights' byte bound {step_bound_ms:.2f} ms; "
+        f"the batch's prefill {prefill_ms:.1f} ms  [{smi}]")
+
+    # the yes/no logits against the same weights under plain attention,
+    # each MoE layer's expert choice recorded in both runs
+    n_probe = 256
+    probe = oracle.pack_prompts(range(n_probe))
+    tids = oracle.pack_token_ids(n_probe)
+    plain = ServingEngine(cfg.replace(attn_impl="flash-ref"), params,
+                          max_batch=64, device=dev)
+    real_route = layers.moe_route
+    routes = {}
+
+    def run(eng, key):
+        routes[key] = []
+
+        def spy(c, p, x):
+            r = real_route(c, p, x)
+            routes[key].append(r[2])
+            return r
+
+        layers.moe_route = spy
+        try:
+            return eng.first_token_logits(probe, tids)
+        finally:
+            layers.moe_route = real_route
+
+    got, want = run(engine, "flash"), run(plain, "plain")
+    diff = float(np.abs(got - want).max())
+    plan = BucketBatcher(max_batch=64).plan(probe)
+    flips = real = 0
+    flipped = np.zeros(n_probe, bool)  # prompts with any routing flip
+    for i, (a, b) in enumerate(zip(routes["flash"], routes["plain"])):
+        rows, _, lens_b = plan[i // n_moe]
+        lens_b = torch.from_numpy(lens_b).to(dev)
+        mask = torch.arange(a.shape[1], device=dev)[None, :] < lens_b[:, None]
+        flip = (a != b).any(-1) & mask
+        flips += int(flip.sum())
+        real += int(mask.sum())
+        flipped[rows] |= flip.any(-1).cpu().numpy()
+    unflipped = ~flipped
+    diff_unflipped = (float(np.abs(got - want)[unflipped].max())
+                      if unflipped.any() else None)
+    decisions = int((oracle.pack_labels(got) != oracle.pack_labels(want))
+                    .sum())
+    log(f"[zoo] yes/no logits, kernels vs plain attention: max abs diff "
+        f"{diff:.4g} over {n_probe} prompts (limit {ZOO_LIMIT}); routing "
+        f"flips {flips} of {real} real (token, MoE layer) choices, in "
+        f"{int(flipped.sum())} prompts; over the {int(unflipped.sum())} "
+        f"prompts without a flip the max abs diff is {diff_unflipped}; "
+        f"decisions differing {decisions}")
+    if not diff < ZOO_LIMIT:
+        raise AssertionError(f"kernel and plain logits differ by {diff}")
+    out["jamba"] = dict(
+        layers=cfg.n_layers, params_b=cfg.param_count() / 1e9,
+        weights_gib=weights_gib, calls=res.n_llm_calls,
+        batches=st["batches"], prefill_tokens_s=prefill_tps,
+        padded_tokens_s=padded_tps, filter_wall_s=wall,
+        decode_tokens_s=decoded / gen_s, step_ms=step_ms,
+        step_busy_ms=busy_ms, step_idle_share=1 - busy_ms / step_ms,
+        step_bound_ms=step_bound_ms, prefill_ms=prefill_ms,
+        logits_diff=diff, logits_diff_unflipped=diff_unflipped,
+        routing_flips=flips, routed=real,
+        prompts_flipped=int(flipped.sum()),
+        decisions_differing=decisions, peak_gib=_peak_gib())
+    log(f"[zoo] jamba peak memory {_peak_gib():.1f} GiB  [{smi}]")
+    del params, engine, plain, oracle, got, want, routes
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ (b) whisper-base
+    wcfg = get_config("whisper-base").replace(attn_impl="flash")
+    wparams = lm.init_params(wcfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    frames = torch.randn((WHISPER_B, wcfg.encoder_len, wcfg.d_model),
+                         generator=g, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(8, wcfg.vocab_size, (WHISPER_B, WHISPER_S),
+                           generator=g, device=dev)
+    max_len = WHISPER_S + WHISPER_STEPS
+
+    def decode(c, fed=None):
+        """prefill, then WHISPER_STEPS decode steps: greedy, or fed the
+        tokens ``fed`` (teacher-forced).  Returns the logits of each step
+        (the prefill's last position first), the tokens fed, and ms."""
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        logits, cache, pos = lm.prefill(c, wparams, prompt, enc_frames=frames,
+                                        max_len=max_len, last_only=True)
+        torch.cuda.synchronize()
+        t1 = monotonic()
+        seen, toks = [logits], []
+        for i in range(WHISPER_STEPS):
+            cur = torch.argmax(logits, -1) if fed is None else fed[i]
+            toks.append(cur)
+            logits, cache = lm.decode_step(c, wparams, cache, cur, pos)
+            pos = pos + 1
+            seen.append(logits)
+        torch.cuda.synchronize()
+        return seen, toks, ((t1 - t0) * 1e3,
+                            (monotonic() - t1) * 1e3 / WHISPER_STEPS)
+
+    with torch.inference_mode():
+        seen, fed, (w_prefill_ms, w_step_ms) = counted(
+            "zoo_whisper", lambda: decode(wcfg),
+            {"flash_attention", "decode_attention"})
+        ref, _, _ = decode(wcfg.replace(attn_impl="flash-ref"), fed)
+    launches = by_path["zoo_whisper"]
+    if launches["flash_attention"] != wcfg.n_layers or \
+            launches["decode_attention"] != wcfg.n_layers * WHISPER_STEPS:
+        raise AssertionError(f"whisper launched {launches}")
+    w_diff = max(float((a - b).abs().max()) for a, b in zip(seen, ref))
+    if not all(torch.isfinite(a).all() for a in seen):
+        raise AssertionError("whisper: non-finite logits")
+    log(f"[zoo] {wcfg.name}: {wcfg.n_layers}+{wcfg.encoder_layers} layers, "
+        f"batch {WHISPER_B}, {wcfg.encoder_len} frames, prompt {WHISPER_S}, "
+        f"{WHISPER_STEPS} steps: prefill (encoder included) "
+        f"{w_prefill_ms:.1f} ms, {w_step_ms:.2f} ms a decode step; logits "
+        f"against plain attention, teacher-forced: max abs diff "
+        f"{w_diff:.4g} (limit {DECODE_LIMIT})  [{smi}]")
+    if not w_diff < DECODE_LIMIT:
+        raise AssertionError(f"whisper kernel and plain logits differ by "
+                             f"{w_diff}")
+    hd = wcfg.resolved_head_dim
+    check_k4([(WHISPER_B, wcfg.n_heads, wcfg.n_kv_heads, WHISPER_S, hd)],
+             "whisper prefill")
+    check_k5([(WHISPER_B, wcfg.n_heads, wcfg.n_kv_heads, max_len, hd)],
+             "whisper decode")
+    out["whisper"] = dict(prefill_ms=w_prefill_ms, step_ms=w_step_ms,
+                          logits_diff=w_diff)
+    del wparams, frames, seen, ref
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ (c) internvl2-26b
+    vbase = get_config("internvl2-26b")
+    vcfg = vbase.replace(n_layers=2, attn_impl="flash")
+    vparams = lm.init_params(vcfg, torch.Generator(device=dev).manual_seed(2),
+                             device=dev)
+    P = vcfg.num_prefix_embeds
+    prefix = torch.randn((VLM_B, P, vcfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    text = torch.randint(8, vcfg.vocab_size, (VLM_B, VLM_TEXT), generator=g,
+                         device=dev)
+
+    def vlm_forward(c):
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        with torch.inference_mode():
+            logits, _ = lm.forward(c, vparams, text, prefix_embeds=prefix)
+        torch.cuda.synchronize()
+        return logits, (monotonic() - t0) * 1e3
+
+    logits, v_ms = counted("zoo_vlm", lambda: vlm_forward(vcfg),
+                           {"flash_attention"})
+    if by_path["zoo_vlm"]["flash_attention"] != vcfg.n_layers:
+        raise AssertionError(f"internvl2 launched {by_path['zoo_vlm']}")
+    vref, _ = vlm_forward(vcfg.replace(attn_impl="flash-ref"))
+    v_diff = float((logits - vref).abs().max())
+    if tuple(logits.shape) != (VLM_B, P + VLM_TEXT, vcfg.padded_vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"internvl2 logits {tuple(logits.shape)}")
+    log(f"[zoo] {vcfg.name}: {vcfg.n_layers} of {vbase.n_layers} layers, "
+        f"batch {VLM_B}, {P} prefix embeddings + {VLM_TEXT} tokens: forward "
+        f"{v_ms:.1f} ms; logits against plain attention: max abs diff "
+        f"{v_diff:.4g} (limit {VLM_LIMIT})  [{smi}]")
+    if not v_diff < VLM_LIMIT:
+        raise AssertionError(f"internvl2 kernel and plain logits differ by "
+                             f"{v_diff}")
+    check_k4([(VLM_B, vcfg.n_heads, vcfg.n_kv_heads, P + VLM_TEXT,
+               vcfg.resolved_head_dim)], "internvl2 forward")
+    out["internvl2"] = dict(forward_ms=v_ms, logits_diff=v_diff)
+    del vparams, logits, vref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1822,6 +2275,15 @@ def main() -> int:
                           cfg.n_layers)
     stream.update(phase_cli(counted, by_path, log, smi))
     log(json.dumps({"stream": stream}))
+
+    # ----------------------------------------------------------- 11. zoo
+    # phase 4's llama3.1-8b (16 GB) and its engines go first: jamba's 16
+    # layers take 52 GB
+    del params, engine, plain, oracle, tracer, res, streams, plain_streams
+    gc.collect()  # sessions and their tables hold the engine in cycles
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(mds, counted, by_path, log, smi)
+    log(json.dumps({"zoo": zoo}))
 
     kernels = []
     for name, rec in record.items():

@@ -1,4 +1,5 @@
-"""Central registry of the per-arch config modules ported so far."""
+"""Central registry of the per-arch config modules (the reference's, in
+its order)."""
 from __future__ import annotations
 
 import importlib
@@ -7,12 +8,19 @@ from typing import Dict
 from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = [
-    "qwen15_05b",
-    # the paper's oracle LLM
-    "llama31_8b",
-    # dense with 5:1 sliding-window:global layers (the decode ring buffer)
+    "falcon_mamba_7b",
+    "mixtral_8x22b",
+    "dbrx_132b",
+    "internvl2_26b",
     "gemma3_12b",
-    # the paper's embedding encoder (repro_torch.embeddings.encoder)
+    "stablelm_12b",
+    "codeqwen15_7b",
+    "qwen15_05b",
+    "jamba_v01_52b",
+    "whisper_base",
+    # the paper's own backbones (oracle LLM + proxy + embedder)
+    "llama31_8b",
+    "llama32_3b_proxy",
     "e5_encoder",
 ]
 
@@ -32,3 +40,29 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     return ARCHS[name].SMOKE
+
+
+# ---------------------------------------------------------------------------
+# long-context applicability
+# ---------------------------------------------------------------------------
+
+LONG_CONTEXT_OK = {
+    "falcon-mamba-7b": "O(1) SSM state",
+    "jamba-v0.1-52b": "hybrid: 4/32 attention layers, rest O(1) Mamba state",
+    "mixtral-8x22b": "SWA: ring KV bounded by window=4096",
+    "gemma3-12b": "5:1 local(1024-ring):global; 8 global layers keep full KV "
+                  "(sharded); beyond its 128k design point — boundary case",
+}
+
+_LONG_SKIP = {
+    "dbrx-132b": "pure full attention: unbounded 500k KV on all 40 layers",
+    "internvl2-26b": "pure full attention on all 48 layers",
+    "stablelm-12b": "pure full attention on all 40 layers",
+    "codeqwen1.5-7b": "pure full attention (MHA kv=32) on all 32 layers",
+    "qwen1.5-0.5b": "pure full attention (MHA kv=16) on all 24 layers",
+    "whisper-base": "enc-dec with 448-token decoder design limit",
+}
+
+
+def long_context_skip_reason(name: str):
+    return _LONG_SKIP.get(name)

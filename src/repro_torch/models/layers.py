@@ -1,11 +1,13 @@
-"""Model layers, dense subset: norms, RoPE, attention (GQA/SWA), MLP.
+"""Model layers: norms, RoPE, attention (GQA/SWA, prefill and decode,
+cross-attention), MLP, MoE, Mamba.
 
 Conventions (the reference's)
 -----------------------------
 - activations ``(B, S, D)``; q ``(B, S, KV, G, hd)``; k/v ``(B, S, KV, hd)``;
   query head h = kv * G + g reads KV head h // G.
 - GQA is computed with grouped einsums (no KV head repetition in memory).
-- softmax runs in float32 regardless of the parameter type.
+- softmax, the MoE router and the SSM scan run in float32 regardless of
+  the parameter type.
 - params are plain nested dicts of tensors.
 
 ``attention_chunked`` holds the reference's three chunked schedules
@@ -13,8 +15,10 @@ Conventions (the reference's)
 the masked rectangle) as loops over q/kv chunks with an online softmax in
 float32.  ``attention_decode`` is the decode step's attention: global
 layers on the flash-decoding kernel (``attn_impl="flash"``),
-sliding-window ring buffers in plain torch.  MoE and Mamba are later
-slices of the port.
+sliding-window ring buffers and cross-attention in plain torch.  MoE
+(token-choice top-k with capacity-bounded per-sequence dispatch) and
+Mamba-1 (a selective scan) are plain torch, as the reference's are plain
+``jnp``/``lax``: no kernel of the port runs in them.
 """
 from __future__ import annotations
 
@@ -309,12 +313,18 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
     ``.at[].set`` returns a new array); the returned cache is the same
     dict.  A caller that needs the old contents clones them first.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention decode serves encoder-decoder models, which "
-            "are not ported yet (ROADMAP.md queue 1)")
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
+    if cross_kv is not None:
+        # cross-attention: static precomputed K/V (encoder frames, no
+        # position), no cache update; ``cache`` is returned as given
+        q = x1 @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(B, 1, cfg.n_kv_heads, -1, hd)
+        out = _sdpa(q, cross_kv["k"], cross_kv["v"], None,
+                    1.0 / math.sqrt(hd))
+        return out.reshape(B, 1, -1) @ p["wo"], cache
     q, k_new, v_new = _project_qkv(cfg, p, x1)
     if cfg.pos_type == "rope":
         q = apply_rope(q.reshape(B, 1, -1, hd), pos[:, None],
@@ -369,3 +379,183 @@ def apply_mlp(cfg: ModelConfig, p, x):
         return h @ p["w_out"] + p["b_out"]
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-bounded scatter dispatch)
+# --------------------------------------------------------------------------
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def moe_route(cfg: ModelConfig, p, x):
+    """The router of ``moe_ffn_tokens``: x (B, T, D) -> probs (B,T,E) f32,
+    renormalised top-k weights topv (B,T,K) f32, experts topi (B,T,K),
+    capacity C, keep (B,T*K) bool and dispatch rows dst (B,T*K).
+
+    Top-k is a stable descending sort, so on ties the lower expert index
+    comes first, as ``lax.top_k`` puts it (``torch.topk`` promises no
+    order).  Each (token, slot) is ranked within its expert in the flat
+    T*K order of its own sequence; ranks >= C go to the sentinel row E*C.
+    """
+    B, T, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :K], topi[..., :K]
+    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+
+    C = min(_round_up(max(1, int(K * T / E * cfg.capacity_factor)), 8), T)
+    flat_e = topi.reshape(B, T * K)
+    onehot = F.one_hot(flat_e, E)                      # (B, T*K, E)
+    ranks = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                         flat_e[..., None])[..., 0] - 1
+    keep = ranks < C
+    dst = torch.where(keep, flat_e * C + ranks, torch.full_like(ranks, E * C))
+    return probs, topv, topi, C, keep, dst
+
+
+def moe_ffn_tokens(cfg: ModelConfig, p, x):
+    """MoE over batched capacity groups x (B, T, D) -> (B, T, D), plus the
+    Switch load-balance aux (a float32 scalar).
+
+    Every sequence dispatches into its own (E, C, D) buffer (GShard groups
+    = the batch rows); tokens that overflow an expert's capacity are
+    dropped (contribute zero).  The expert products are plain batched
+    matmuls over the experts, in the model type.
+    """
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    probs, topv, topi, C, _, dst = moe_route(cfg, p, x)
+
+    x_rep = torch.repeat_interleave(x, K, dim=1)       # (B, T*K, D)
+    buf = x.new_zeros((B, E * C + 1, D))
+    bidx = torch.arange(B, device=x.device)[:, None]
+    buf[bidx, dst] = x_rep     # rows at the sentinel E*C are thrown away
+    buf = buf[:, :E * C].reshape(B, E, C, D)
+
+    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    out_buf = torch.einsum("becf,efd->becd", h, p["w_down"])
+    out_flat = torch.cat([out_buf.reshape(B, E * C, D),
+                          out_buf.new_zeros((B, 1, D))], dim=1)
+
+    gathered = out_flat[bidx, dst]                     # (B, T*K, D)
+    out = torch.sum(gathered.reshape(B, T, K, D)
+                    * topv[..., None].to(x.dtype), dim=2)
+
+    # aux: load-balance loss (Switch) — mean fraction * mean prob per expert
+    frac = torch.mean(F.one_hot(topi[..., 0], E).float(), dim=(0, 1))
+    imp = torch.mean(probs, dim=(0, 1))
+    aux = E * torch.sum(frac * imp)
+    return out, aux
+
+
+def apply_moe(cfg: ModelConfig, p, x):
+    """x (B,S,D) -> ((B,S,D), aux); over S-chunks of ``cfg.moe_chunk`` when
+    0 < moe_chunk < S and S % moe_chunk == 0 (capacity group = sequence x
+    chunk; the aux is the mean over chunks)."""
+    B, S, D = x.shape
+    chunk = cfg.moe_chunk
+    if chunk <= 0 or S <= chunk or S % chunk != 0:
+        return moe_ffn_tokens(cfg, p, x)
+    nch = S // chunk
+    outs = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nch):
+        out, a = moe_ffn_tokens(cfg, p, x[:, c * chunk:(c + 1) * chunk])
+        outs.append(out)
+        aux = aux + a
+    return torch.cat(outs, dim=1), aux / nch
+
+
+# --------------------------------------------------------------------------
+# Mamba-1 (selective scan)
+# --------------------------------------------------------------------------
+
+
+def _mamba_gates(cfg, p, xr):
+    """Common pre-scan computation: xr (B,S,di) -> dt, Bc, Cc (float32)."""
+    dr, ds = cfg.dt_rank, cfg.ssm_state
+    dbc = (xr @ p["x_proj"]).float()                   # (B,S,dr+2ds)
+    dt_low, Bc, Cc = torch.split(dbc, [dr, ds, ds], dim=-1)
+    dt = F.softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"])
+    return dt, Bc, Cc                      # (B,S,di), (B,S,ds), (B,S,ds)
+
+
+def _ssm_chunk(h, dt_c, B_c, C_c, x_c, A, Dp):
+    """One chunk of the selective scan, carried from state h (B,di,ds).
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t, stepped over the chunk in
+    place of the reference's associative scan (the same recurrence; the
+    float order differs).  The chunk's (B, c, di, ds) decay and input
+    tensors are its transient memory.  Returns (h_final, y (B,c,di)).
+    """
+    a = torch.exp(dt_c[..., None] * A)                       # (B,c,di,ds)
+    hs = (dt_c * x_c)[..., None] * B_c[:, :, None, :]        # b, then h_t
+    hs[:, 0].addcmul_(a[:, 0], h)
+    for t in range(1, hs.shape[1]):
+        hs[:, t].addcmul_(a[:, t], hs[:, t - 1])
+    y = torch.einsum("bcds,bcs->bcd", hs, C_c) + Dp * x_c
+    return hs[:, -1].clone(), y
+
+
+def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
+    """Full-sequence Mamba: x (B,S,D) -> (y (B,S,D), (h_final, conv_state)).
+
+    Chunked along S (``cfg.ssm_chunk``): a recurrence within each chunk in
+    float32, carried across chunks, so ``ssm_chunk`` bounds the
+    (B, chunk, d_inner, ssm_state) intermediates as the reference's does.
+    """
+    B, S, D = x.shape
+    di, dc = cfg.d_inner, cfg.ssm_conv
+    xr, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)   # (B,S,di) each
+
+    # causal depthwise conv along S
+    pad = (x.new_zeros((B, dc - 1, di)) if conv0 is None
+           else conv0.to(xr.dtype))
+    xp = torch.cat([pad, xr], dim=1)                   # (B, S+dc-1, di)
+    conv_state = xp[:, -(dc - 1):, :].clone() if dc > 1 else None
+    xc = sum(xp[:, i:i + S, :] * p["conv_w"][i] for i in range(dc)) \
+        + p["conv_b"]
+    xc = F.silu(xc.float()).to(x.dtype)
+
+    dt, Bc, Cc = _mamba_gates(cfg, p, xc)
+    A = -torch.exp(p["A_log"])                         # (di, ds)
+    ck = min(cfg.ssm_chunk, S)
+    xcf = xc.float()
+    h = (torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0)
+    ys = []
+    for lo in range(0, S, ck):  # full chunks, then the tail
+        sl = slice(lo, min(lo + ck, S))
+        h, y = _ssm_chunk(h, dt[:, sl], Bc[:, sl], Cc[:, sl], xcf[:, sl], A,
+                          p["D"])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], (h, conv_state)
+
+
+def mamba_decode(cfg: ModelConfig, p, x1, state):
+    """One-token Mamba step. state = {"h": (B,di,ds) f32, "conv":
+    (B,dc-1,di)} -> (out (B,1,D), new state); ``state`` is not changed."""
+    xr, z = torch.chunk(x1 @ p["in_proj"], 2, dim=-1)  # (B,1,di) each
+    window = torch.cat([state["conv"].to(xr.dtype), xr], dim=1)  # (B,dc,di)
+    new_conv = window[:, 1:, :]
+    xc = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"]
+    xc = F.silu(xc.float()).to(x1.dtype)[:, None, :]  # (B,1,di)
+
+    dt, Bc, Cc = _mamba_gates(cfg, p, xc)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt[:, 0, :, None] * A)               # (B,di,ds)
+    b = (dt[:, 0] * xc[:, 0].float())[..., None] * Bc[:, 0, None, :]
+    h = a * state["h"] + b
+    y = torch.einsum("bds,bs->bd", h, Cc[:, 0]) + p["D"] * xc[:, 0].float()
+    y = (y[:, None, :] * F.silu(z.float())).to(x1.dtype)
+    return y @ p["out_proj"], {"h": h,
+                               "conv": new_conv.to(state["conv"].dtype)}

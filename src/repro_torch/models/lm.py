@@ -1,14 +1,19 @@
-"""Decoder LM, dense subset: forward, yes/no logit select, prefill and
-decode over a KV cache.
+"""Decoder LM and encoder-decoder: forward, yes/no logit select, prefill
+and decode over a KV cache, for every layer kind of the model zoo
+(attention, Mamba, dense and MoE FFNs, cross-attention) with the VLM
+prefix and sinusoidal positions.
 
 Parameters are plain nested dicts of tensors with the reference's names.
 The reference stacks the superblocks along a leading axis and scans over
-them; here ``params["blocks"]`` is a list with one dict per superblock and
-the forward is a Python loop over layers.  The decode cache follows the
-same layout: a list with one ``{"l{i}": {"k", "v"}}`` dict per
-superblock.  ``init_layer`` and ``encoder_params_from_jax`` also serve the
-bidirectional encoder (``repro_torch.embeddings.encoder``).  Mamba, MoE,
-encoder-decoder and prefix embeddings are later slices of the port.
+them; here ``params["blocks"]`` (and an encoder-decoder's
+``params["enc_blocks"]``) is a list with one dict per superblock and the
+forward is a Python loop over layers.  The decode cache follows the same
+layout: a list with one ``{"l{i}": entry}`` dict per superblock, where an
+attention layer's entry holds ``"k"``/``"v"``, a Mamba layer's ``"h"``
+(the float32 SSM state) and ``"conv"``, and an encoder-decoder's also the
+static cross-attention ``"xk"``/``"xv"``.  ``init_layer`` and
+``encoder_params_from_jax`` also serve the bidirectional embedding
+encoder (``repro_torch.embeddings.encoder``).
 """
 from __future__ import annotations
 
@@ -22,16 +27,14 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.utils.device import resolve_device
 
+# the whisper-style encoder's one-layer superblock (the reference's)
+_ENC_SPEC = LayerSpec(kind="attn", ffn="dense")
+
 
 def _check_supported(cfg: ModelConfig, encoder: bool = False) -> None:
-    """Refuse what the port cannot run.  The ``encoder`` family (the
-    embedding encoder, sinusoidal positions) is admitted only where the
-    encoder asks for it (``encoder=True``); the decoder paths refuse it."""
-    for spec in cfg.pattern:
-        if spec.kind != "attn" or spec.ffn not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {spec} is not ported yet (Mamba and MoE "
-                "come with the model zoo, ROADMAP.md queue 1)")
+    """Keep the ``encoder`` family (the embedding encoder) and the decoder
+    apart: an encoder config runs only where the encoder asks for it
+    (``encoder=True``), and the decoder paths refuse it."""
     if encoder:
         if cfg.family != "encoder":
             raise ValueError(f"{cfg.name}: not an encoder config "
@@ -40,10 +43,6 @@ def _check_supported(cfg: ModelConfig, encoder: bool = False) -> None:
     if cfg.family == "encoder":
         raise ValueError(f"{cfg.name}: an encoder config runs through "
                          "repro_torch.embeddings.encoder, not the decoder")
-    if cfg.is_encdec or cfg.num_prefix_embeds or cfg.pos_type != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, prefix and sinusoidal models are "
-            "not ported yet (ROADMAP.md queue 1)")
 
 
 # --------------------------------------------------------------------------
@@ -51,37 +50,77 @@ def _check_supported(cfg: ModelConfig, encoder: bool = False) -> None:
 # --------------------------------------------------------------------------
 
 
-def _layer_shapes(cfg: ModelConfig, spec: LayerSpec):
-    """(name path, shape, init) of one layer's tensors, in the reference's
-    names; ``init`` is "ones" (norm scale), "norm_bias" (LayerNorm bias),
-    "zeros" (bias) or the fan-in of a dense weight."""
-    D, hd, F = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    out = _norm_shapes(cfg, "norm") + [
-           (("attn", "wq"), (D, H * hd), D), (("attn", "wk"), (D, KV * hd), D),
-           (("attn", "wv"), (D, KV * hd), D), (("attn", "wo"), (H * hd, D),
-                                               H * hd)]
-    if cfg.qkv_bias:
-        out += [(("attn", "bq"), (H * hd,), "zeros"),
-                (("attn", "bk"), (KV * hd,), "zeros"),
-                (("attn", "bv"), (KV * hd,), "zeros")]
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec,
+                  with_xattn: bool = False):
+    """(name path, shape, init, dtype) of one layer's tensors, in the
+    reference's names.  ``init`` is "ones", "zeros", "a_log" (Mamba's
+    log(1..ssm_state) on every row), "dt_bias" (-4.6, softplus^-1(0.01))
+    or the fan-in of a normal weight; ``dtype`` is "model" (``cfg.dtype``)
+    or "float32" (norms, the MoE router and Mamba's A_log, D and dt_bias,
+    as the reference keeps them)."""
+    D, hd, F_ = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    out = _norm_shapes(cfg, "norm")
+    if spec.kind == "attn":
+        out += _attn_shapes(cfg, "attn", cross=False)
+    else:
+        di, ds, dr, dc = (cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                          cfg.ssm_conv)
+        m = "mamba"
+        out += [((m, "in_proj"), (D, 2 * di), D, "model"),
+                ((m, "conv_w"), (dc, di), dc, "model"),
+                ((m, "conv_b"), (di,), "zeros", "model"),
+                ((m, "x_proj"), (di, dr + 2 * ds), di, "model"),
+                ((m, "dt_proj"), (dr, di), dr, "model"),
+                ((m, "dt_bias"), (di,), "dt_bias", "float32"),
+                ((m, "A_log"), (di, ds), "a_log", "float32"),
+                ((m, "D"), (di,), "ones", "float32"),
+                ((m, "out_proj"), (di, D), di, "model")]
+    if with_xattn:
+        out += _norm_shapes(cfg, "xattn_norm")
+        out += _attn_shapes(cfg, "xattn", cross=True)
     if spec.ffn == "dense":
         out += _norm_shapes(cfg, "ffn_norm")
         if cfg.mlp_type == "gelu":
-            out += [(("ffn", "w_in"), (D, F), D), (("ffn", "b_in"), (F,), "zeros"),
-                    (("ffn", "w_out"), (F, D), F), (("ffn", "b_out"), (D,), "zeros")]
+            out += [(("ffn", "w_in"), (D, F_), D, "model"),
+                    (("ffn", "b_in"), (F_,), "zeros", "model"),
+                    (("ffn", "w_out"), (F_, D), F_, "model"),
+                    (("ffn", "b_out"), (D,), "zeros", "model")]
         else:
-            out += [(("ffn", "w_gate"), (D, F), D), (("ffn", "w_up"), (D, F), D),
-                    (("ffn", "w_down"), (F, D), F)]
+            out += [(("ffn", "w_gate"), (D, F_), D, "model"),
+                    (("ffn", "w_up"), (D, F_), D, "model"),
+                    (("ffn", "w_down"), (F_, D), F_, "model")]
+    elif spec.ffn == "moe":
+        E = cfg.n_experts
+        out += _norm_shapes(cfg, "ffn_norm")
+        out += [(("moe", "router"), (D, E), D, "float32"),
+                (("moe", "w_gate"), (E, D, F_), D, "model"),
+                (("moe", "w_up"), (E, D, F_), D, "model"),
+                (("moe", "w_down"), (E, F_, D), F_, "model")]
+    return out
+
+
+def _attn_shapes(cfg: ModelConfig, name: str, cross: bool):
+    """An attention block's tensors; a cross-attention block has no QKV
+    bias, as the reference's ``init_attention(cross=True)``."""
+    D, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    out = [((name, "wq"), (D, H * hd), D, "model"),
+           ((name, "wk"), (D, KV * hd), D, "model"),
+           ((name, "wv"), (D, KV * hd), D, "model"),
+           ((name, "wo"), (H * hd, D), H * hd, "model")]
+    if cfg.qkv_bias and not cross:
+        out += [((name, "bq"), (H * hd,), "zeros", "model"),
+                ((name, "bk"), (KV * hd,), "zeros", "model"),
+                ((name, "bv"), (KV * hd,), "zeros", "model")]
     return out
 
 
 def _norm_shapes(cfg: ModelConfig, name: str):
     """A norm's tensors: its scale, and for LayerNorm its bias (both
     float32, as the reference's ``init_norm``)."""
-    out = [((name, "scale"), (cfg.d_model,), "ones")]
+    out = [((name, "scale"), (cfg.d_model,), "ones", "float32")]
     if cfg.norm_type == "ln":
-        out.append(((name, "bias"), (cfg.d_model,), "norm_bias"))
+        out.append(((name, "bias"), (cfg.d_model,), "zeros", "float32"))
     return out
 
 
@@ -93,66 +132,84 @@ def _put(tree: dict, path, value) -> None:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
-    """Random weights on ``device`` in ``cfg.dtype``, one tensor at a time.
+    """Random weights on ``device``, one tensor at a time.
 
-    Dense weights are normal with std 1/sqrt(fan_in) as in the reference;
-    norm scales are ones and biases zeros.  ``generator`` must live on
-    ``device`` (``torch.Generator(device="cuda")`` for the card).
+    Normal weights have std 1/sqrt(fan_in) as in the reference; norm
+    scales are ones, biases zeros, and Mamba's A_log, D and dt_bias take
+    the reference's fixed values.  ``generator`` must live on ``device``
+    (``torch.Generator(device="cuda")`` for the card).
     """
     _check_supported(cfg)
     dev = resolve_device(device)
     D, Vp = cfg.d_model, cfg.padded_vocab
     params = {"embed": {"table": _normal(cfg, generator, dev, (Vp, D), D)},
-              "blocks": [{f"l{i}": init_layer(cfg, spec, generator, dev)
+              "blocks": [{f"l{i}": init_layer(cfg, spec, generator, dev,
+                                              with_xattn=cfg.is_encdec)
                           for i, spec in enumerate(cfg.pattern)}
                          for _ in range(cfg.n_superblocks)],
               "final_norm": init_norm(cfg, dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": _normal(cfg, generator, dev, (Vp, D), Vp)}
+    if cfg.is_encdec:
+        params["enc_blocks"] = [
+            {"l0": init_layer(cfg, _ENC_SPEC, generator, dev)}
+            for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = init_norm(cfg, dev)
     return params
 
 
-def _normal(cfg: ModelConfig, generator, dev, shape, fan_in):
-    """Normal with std 1/sqrt(fan_in), drawn in float32, in ``cfg.dtype``."""
+def _normal(cfg: ModelConfig, generator, dev, shape, fan_in,
+            dtype: str = "model"):
+    """Normal with std 1/sqrt(fan_in), drawn in float32, in ``cfg.dtype``
+    (or float32 for ``dtype="float32"``)."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=dev)
-    return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(getattr(torch,
-                                                              cfg.dtype))
+    w.mul_(1.0 / math.sqrt(max(1, fan_in)))
+    return w if dtype == "float32" else w.to(getattr(torch, cfg.dtype))
 
 
 def init_norm(cfg: ModelConfig, dev) -> dict:
     """A norm's parameters: scale ones (and LayerNorm bias zeros), f32."""
     return {path[-1]: (torch.ones if init == "ones" else torch.zeros)(
         shape, dtype=torch.float32, device=dev)
-        for path, shape, init in _norm_shapes(cfg, "norm")}
+        for path, shape, init, _ in _norm_shapes(cfg, "norm")}
 
 
-def init_layer(cfg: ModelConfig, spec: LayerSpec, generator, dev) -> dict:
-    """One layer's random weights (the reference's names and inits)."""
+def init_layer(cfg: ModelConfig, spec: LayerSpec, generator, dev,
+               with_xattn: bool = False) -> dict:
+    """One layer's random weights (the reference's names, inits and
+    dtypes); ``with_xattn`` adds an encoder-decoder's cross-attention."""
     layer: dict = {}
-    for path, shape, init in _layer_shapes(cfg, spec):
-        if init in ("ones", "norm_bias"):  # norms stay float32
-            t = (torch.ones if init == "ones" else torch.zeros)(
-                shape, dtype=torch.float32, device=dev)
+    for path, shape, init, dtype in _layer_shapes(cfg, spec, with_xattn):
+        tdt = torch.float32 if dtype == "float32" else getattr(torch,
+                                                              cfg.dtype)
+        if init == "ones":
+            t = torch.ones(shape, dtype=tdt, device=dev)
         elif init == "zeros":
-            t = torch.zeros(shape, dtype=getattr(torch, cfg.dtype),
-                            device=dev)
+            t = torch.zeros(shape, dtype=tdt, device=dev)
+        elif init == "dt_bias":
+            t = torch.full(shape, -4.6, dtype=tdt, device=dev)
+        elif init == "a_log":
+            t = torch.log(torch.arange(1, shape[1] + 1, dtype=torch.float64,
+                                       device=dev)).to(tdt).expand(shape)
+            t = t.clone()
         else:
-            t = _normal(cfg, generator, dev, shape, init)
+            t = _normal(cfg, generator, dev, shape, init, dtype)
         _put(layer, path, t)
     return layer
 
 
 def params_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> dict:
     """The reference's ``lm.init_params`` tree (numpy arrays, superblocks
-    stacked on a leading axis) as the port's parameters on ``device``."""
+    stacked on a leading axis) as the port's parameters on ``device``;
+    an encoder-decoder's ``enc_blocks`` are unstacked the same way."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    params = {k: {n: _from_numpy(a, dev) for n, a in v.items()}
-              for k, v in np_tree.items() if k != "blocks"}
-    params["blocks"] = [_superblock(np_tree["blocks"], i, dev)
-                        for i in range(cfg.n_superblocks)]
-    return params
+    stacked = {"blocks": cfg.n_superblocks, "enc_blocks": cfg.encoder_layers}
+    return {k: ([_superblock(v, i, dev) for i in range(stacked[k])]
+                if k in stacked else
+                {n: _from_numpy(a, dev) for n, a in v.items()})
+            for k, v in np_tree.items()}
 
 
 def encoder_params_from_jax(cfg: ModelConfig, np_tree: dict,
@@ -187,7 +244,7 @@ def _superblock(tree, i: int, dev: torch.device):
 def cache_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> list:
     """The reference's ``make_cache``/``prefill`` cache (numpy arrays,
     superblocks stacked on a leading axis) as the port's cache on
-    ``device``: one ``{"l{i}": {"k", "v"}}`` dict per superblock."""
+    ``device``: one ``{"l{i}": entry}`` dict per superblock."""
     _check_supported(cfg)
     dev = resolve_device(device)
     return [_superblock(np_tree, i, dev) for i in range(cfg.n_superblocks)]
@@ -198,14 +255,84 @@ def cache_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> list:
 # --------------------------------------------------------------------------
 
 
-def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions):
+def _inputs(cfg: ModelConfig, params, tokens, prefix_embeds, enc_frames):
+    """The stack's input: token embeddings after the VLM prefix (cast to
+    the model type), sinusoidal positions where the config has them; the
+    positions (1, S); and an encoder-decoder's encoder output."""
+    h = params["embed"]["table"][tokens]
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    if cfg.pos_type == "sinusoidal":
+        h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder takes "
+                             "enc_frames (B, Senc, D)")
+        enc_out = encode(cfg, params, enc_frames)
+    return h, positions, enc_out
+
+
+def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
+                 enc_out=None, entry=None, max_len=None):
+    """One layer, full-sequence mode -> (h, aux): aux is the MoE FFN's
+    load-balance loss, None for other layers.  With ``entry`` (prefill)
+    the layer's decode cache goes into that dict: post-RoPE K/V folded to
+    the ring (``max_len`` for a global layer), Mamba's final state and
+    conv window, and an encoder-decoder's static cross-attention K/V."""
+    aux = None
     hn = L.apply_norm(cfg, p["norm"], h)
-    h = h + L.attention_apply(cfg, p["attn"], hn, causal=True,
-                              window=spec.window, positions=positions)
+    if spec.kind == "attn":
+        if entry is not None:
+            entry["k"], entry["v"] = _project_kv_cache(
+                cfg, p["attn"], hn, positions, _ring_len(cfg, spec, max_len))
+        out = L.attention_apply(cfg, p["attn"], hn, causal=True,
+                                window=spec.window, positions=positions)
+    else:
+        out, (state, conv) = L.mamba_scan(cfg, p["mamba"], hn)
+        if entry is not None:
+            entry["h"], entry["conv"] = state, conv
+    h = h + out
+    if "xattn" in p and enc_out is not None:
+        hx = L.apply_norm(cfg, p["xattn_norm"], h)
+        h = h + L.attention_plain(cfg, p["xattn"], hx, causal=False,
+                                  kv_x=enc_out)
+        if entry is not None:
+            shape = (h.shape[0], -1, cfg.n_kv_heads, cfg.resolved_head_dim)
+            entry["xk"] = (enc_out @ p["xattn"]["wk"]).reshape(shape)
+            entry["xv"] = (enc_out @ p["xattn"]["wv"]).reshape(shape)
     if spec.ffn == "dense":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
         h = h + L.apply_mlp(cfg, p["ffn"], hf)
-    return h
+    elif spec.ffn == "moe":
+        hf = L.apply_norm(cfg, p["ffn_norm"], h)
+        out, aux = L.apply_moe(cfg, p["moe"], hf)
+        h = h + out
+    return h, aux
+
+
+def _run_stack(cfg: ModelConfig, params, h, positions, enc_out,
+               max_len=None):
+    """Every superblock in turn -> (h, aux, cache).  The aux adds up by
+    superblock as the reference's scan carries it; ``cache`` is built
+    only when ``max_len`` is given (prefill), else None."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cache = None if max_len is None else []
+    for sb in params["blocks"]:
+        sb_aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        sb_cache = {}
+        for i, spec in enumerate(cfg.pattern):
+            entry = None if cache is None else sb_cache.setdefault(f"l{i}",
+                                                                   {})
+            h, a = _apply_layer(cfg, spec, sb[f"l{i}"], h, positions,
+                                enc_out, entry, max_len)
+            if a is not None:
+                sb_aux = sb_aux + a
+        aux = aux + sb_aux
+        if cache is not None:
+            cache.append(sb_cache)
+    return h, aux, cache
 
 
 def _lm_table(cfg: ModelConfig, params):
@@ -213,16 +340,33 @@ def _lm_table(cfg: ModelConfig, params):
             else params["embed"]["table"])
 
 
-def forward_hidden(cfg: ModelConfig, params, tokens):
-    """Full-sequence forward up to the final hidden states -> (h, aux)."""
+def encode(cfg: ModelConfig, params, enc_frames):
+    """Whisper-style encoder over stub frame embeddings (B, Senc, D), cast
+    to the model type: sinusoidal positions, bidirectional attention
+    without RoPE, dense FFNs, a final norm."""
+    h = enc_frames.to(params["embed"]["table"].dtype)
+    pos = torch.arange(h.shape[1], device=h.device)[None, :]
+    h = h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
+    for blk in params["enc_blocks"]:
+        p = blk["l0"]
+        hn = L.apply_norm(cfg, p["norm"], h)
+        h = h + L.attention_plain(cfg, p["attn"], hn, causal=False,
+                                  rope=False)
+        hf = L.apply_norm(cfg, p["ffn_norm"], h)
+        h = h + L.apply_mlp(cfg, p["ffn"], hf)
+    return L.apply_norm(cfg, params["enc_final_norm"], h)
+
+
+def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+                   enc_frames=None):
+    """Full-sequence forward up to the final hidden states -> (h, aux):
+    aux is the sum of the MoE layers' load-balance losses (0 without
+    MoE)."""
     _check_supported(cfg)
-    h = params["embed"]["table"][tokens]
-    S = h.shape[1]
-    positions = torch.arange(S, device=h.device)[None, :]
-    for sb in params["blocks"]:
-        for i, spec in enumerate(cfg.pattern):
-            h = _apply_layer(cfg, spec, sb[f"l{i}"], h, positions)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, positions, enc_out = _inputs(cfg, params, tokens, prefix_embeds,
+                                    enc_frames)
+    h, aux, _ = _run_stack(cfg, params, h, positions, enc_out)
+    return h, aux
 
 
 def first_logits_select(cfg: ModelConfig, params, tokens, lens, token_ids):
@@ -259,9 +403,15 @@ def hidden_logits(cfg: ModelConfig, params, h):
     return out.reshape(*h.shape[:-1], table.shape[0])
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Full-sequence forward -> (logits (B,S,Vp) float32, aux)."""
-    h, aux = forward_hidden(cfg, params, tokens)
+def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+            enc_frames=None):
+    """Full-sequence forward -> (logits (B,S,Vp) float32, aux).
+
+    - ``prefix_embeds`` (B, P, D): VLM stub — prepended to token
+      embeddings; total sequence length = P + tokens.shape[1].
+    - ``enc_frames`` (B, Senc, D): audio stub for enc-dec models.
+    """
+    h, aux = forward_hidden(cfg, params, tokens, prefix_embeds, enc_frames)
     return hidden_logits(cfg, params, h), aux
 
 
@@ -278,27 +428,60 @@ def _ring_len(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=None,
                device="cuda") -> list:
-    """Zero-initialized decode cache: one ``{"l{i}": {"k", "v"}}`` dict per
-    superblock, each (batch, ring_len, KV, hd)."""
+    """Zero-initialized decode cache: one ``{"l{i}": entry}`` dict per
+    superblock.  An attention layer's entry holds "k"/"v" (batch,
+    ring_len, KV, hd); a Mamba layer's "h" (batch, d_inner, ssm_state)
+    float32 and "conv" (batch, ssm_conv - 1, d_inner); an
+    encoder-decoder's layers also "xk"/"xv" (batch, encoder_len, KV, hd).
+    """
     _check_supported(cfg)
     dev = resolve_device(device)
     kv_dtype = kv_dtype or getattr(torch, cfg.dtype)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return [{f"l{i}": {kv: torch.zeros((batch, _ring_len(cfg, spec, max_len),
-                                        KV, hd), dtype=kv_dtype, device=dev)
-                       for kv in ("k", "v")}
-             for i, spec in enumerate(cfg.pattern)}
+
+    def entry(spec):
+        if spec.kind == "attn":
+            shape = (batch, _ring_len(cfg, spec, max_len), KV, hd)
+            e = {kv: torch.zeros(shape, dtype=kv_dtype, device=dev)
+                 for kv in ("k", "v")}
+        else:
+            e = {"h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                                  dtype=torch.float32, device=dev),
+                 "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                     dtype=kv_dtype, device=dev)}
+        if cfg.is_encdec:
+            for kv in ("xk", "xv"):
+                e[kv] = torch.zeros((batch, cfg.encoder_len, KV, hd),
+                                    dtype=kv_dtype, device=dev)
+        return e
+
+    return [{f"l{i}": entry(spec) for i, spec in enumerate(cfg.pattern)}
             for _ in range(cfg.n_superblocks)]
 
 
 def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, c, h, pos):
+    """One layer of a decode step; the layer's cache entry ``c`` is updated
+    in place (K/V rows written, the Mamba state and window replaced)."""
     hn = L.apply_norm(cfg, p["norm"], h)
-    out, _ = L.attention_decode(cfg, p["attn"], hn, c, pos,
-                                window=spec.window)
+    if spec.kind == "attn":
+        out, _ = L.attention_decode(cfg, p["attn"], hn, c, pos,
+                                    window=spec.window)
+    else:
+        out, state = L.mamba_decode(cfg, p["mamba"], hn, c)
+        c.update(state)
     h = h + out
+    if "xattn" in p and "xk" in c:
+        hx = L.apply_norm(cfg, p["xattn_norm"], h)
+        out, _ = L.attention_decode(cfg, p["xattn"], hx, None, pos,
+                                    cross_kv={"k": c["xk"], "v": c["xv"]})
+        h = h + out
     if spec.ffn == "dense":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
         h = h + L.apply_mlp(cfg, p["ffn"], hf)
+    elif spec.ffn == "moe":
+        hf = L.apply_norm(cfg, p["ffn_norm"], h)
+        out, _ = L.apply_moe(cfg, p["moe"], hf)
+        h = h + out
     return h
 
 
@@ -311,6 +494,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     """
     _check_supported(cfg)
     h = params["embed"]["table"][tokens[:, None]]  # (B,1,D)
+    if cfg.pos_type == "sinusoidal":
+        h = h + L.sinusoidal_positions(pos[:, None], cfg.d_model).to(h.dtype)
     for sb, sb_cache in zip(params["blocks"], cache):
         for i, spec in enumerate(cfg.pattern):
             h = _apply_layer_decode(cfg, spec, sb[f"l{i}"], sb_cache[f"l{i}"],
@@ -347,43 +532,32 @@ def _project_kv_cache(cfg: ModelConfig, p, hn, positions, ring_len: int):
     return kc, vc
 
 
-def prefill_hidden(cfg: ModelConfig, params, tokens, max_len=None):
+def prefill_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+                   enc_frames=None, max_len=None):
     """Forward over a prompt, building the decode cache.
 
     Returns (h (B,S,D) final hidden states before the final norm, cache,
-    next_pos (B,)).  ``max_len`` (default S) sizes the global layers'
-    cache.
+    next_pos (B,)); S counts the prefix.  ``max_len`` (default S) sizes
+    the global layers' cache.  A Mamba layer's state is the scan's over
+    all S positions, right padding included (the reference's).
     """
     _check_supported(cfg)
-    h = params["embed"]["table"][tokens]
+    h, positions, enc_out = _inputs(cfg, params, tokens, prefix_embeds,
+                                    enc_frames)
     B, S, _ = h.shape
-    max_len = max_len or S
-    positions = torch.arange(S, device=h.device)[None, :]
-    cache = []
-    for sb in params["blocks"]:
-        sb_cache = {}
-        for i, spec in enumerate(cfg.pattern):
-            p = sb[f"l{i}"]
-            hn = L.apply_norm(cfg, p["norm"], h)
-            k, v = _project_kv_cache(cfg, p["attn"], hn, positions,
-                                     _ring_len(cfg, spec, max_len))
-            sb_cache[f"l{i}"] = {"k": k, "v": v}
-            h = h + L.attention_apply(cfg, p["attn"], hn, causal=True,
-                                      window=spec.window, positions=positions)
-            if spec.ffn == "dense":
-                hf = L.apply_norm(cfg, p["ffn_norm"], h)
-                h = h + L.apply_mlp(cfg, p["ffn"], hf)
-        cache.append(sb_cache)
+    h, _, cache = _run_stack(cfg, params, h, positions, enc_out,
+                             max_len=max_len or S)
     return h, cache, torch.full((B,), S, dtype=torch.long, device=h.device)
 
 
-def prefill(cfg: ModelConfig, params, tokens, max_len=None,
-            last_only: bool = False):
+def prefill(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+            enc_frames=None, max_len=None, last_only: bool = False):
     """Forward over a prompt, building the decode cache.
 
     Returns (logits, cache, next_pos (B,)); logits are (B,S,Vp) float32,
     or (B,Vp) for the last position only when ``last_only``.
     """
-    h, cache, next_pos = prefill_hidden(cfg, params, tokens, max_len)
+    h, cache, next_pos = prefill_hidden(cfg, params, tokens, prefix_embeds,
+                                        enc_frames, max_len)
     logits = hidden_logits(cfg, params, h[:, -1] if last_only else h)
     return logits, cache, next_pos

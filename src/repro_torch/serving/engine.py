@@ -1,11 +1,15 @@
-"""Batched serving engine: prefill + decode over the ported model subset.
+"""Batched serving engine: prefill + decode over the model zoo's decoders.
 
 Drives the oracle-LLM side of the CSV pipeline: ``first_token_logits``
 serves the semantic filter's yes/no decisions; ``generate`` serves the
-example apps, decoding over a KV cache (global layers on the
-flash-decoding kernel under ``attn_impl="flash"``).  Prompts are grouped
-into power-of-two length buckets by the same ``BucketBatcher`` as the
-reference.
+example apps, decoding over a KV cache (global attention layers on the
+flash-decoding kernel under ``attn_impl="flash"``; Mamba layers carry
+their SSM state, MoE layers dispatch each step's token).  Prompts are
+grouped into power-of-two length buckets by the same ``BucketBatcher``
+as the reference, so an MoE model's capacity and a Mamba layer's state
+see a batch's right padding as the reference's do.  Encoder-decoder and
+VLM-prefix models take their frames or prefix through ``lm.prefill`` and
+``lm.forward``, not through the engine (nor do the reference's).
 """
 from __future__ import annotations
 

@@ -235,12 +235,28 @@ def test_attention_decode_matches_reference(jx, arch, impl, layer):
                                    atol=1e-5)
 
 
-def test_attention_decode_refuses_cross_attention():
-    cfg = smoke_config("llama3.1-8b")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        layers.attention_decode(cfg, {}, torch.zeros(1, 1, cfg.d_model), None,
-                                torch.zeros(1, dtype=torch.long),
-                                cross_kv={"k": None, "v": None})
+def test_attention_decode_refuses_cross_attention(jx):
+    """Cross-attention decode is served now (the encoder-decoder came with
+    the model zoo): it reads the static K/V, refuses to touch the cache it
+    is given, and equals the reference's cross branch."""
+    jcfg, jparams, tcfg, tparams = _pair(jx, "llama3.1-8b", "flash")
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 1, tcfg.d_model)).astype(np.float32)
+    kv = {k: rng.normal(size=(2, 9, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+                        ).astype(np.float32) for k in ("k", "v")}
+    ref, _ = jx.layers.attention_decode(
+        jcfg, jx.jax.tree_util.tree_map(lambda a: a[0],
+                                        jparams["blocks"])["l0"]["attn"],
+        jx.jnp.asarray(x), None, jx.jnp.zeros(2, jx.jnp.int32),
+        cross_kv={k: jx.jnp.asarray(v) for k, v in kv.items()})
+    cache = {"k": torch.zeros(2, 4, 2, 16)}
+    out, same = layers.attention_decode(
+        tcfg, tparams["blocks"][0]["l0"]["attn"], torch.from_numpy(x), cache,
+        torch.zeros(2, dtype=torch.long),
+        cross_kv={k: torch.from_numpy(v) for k, v in kv.items()})
+    assert same is cache and not cache["k"].any()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ------------------------------------------------- prefill and decode
