@@ -126,17 +126,35 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             widths, 2 layers, bf16: lm.forward over 256 prefix embeddings
             and 128 text tokens (K4 at H 48, S 384) against "flash-ref"
             (VLM_LIMIT).
+12. train   training on the card, after phase 11 has freed its models.
+            (a) qwen1.5-0.5b at published widths and full depth, bf16
+            with a float32 master, random weights from a torch seed:
+            launch.train's loop, 20 steps of B 4 x S 4,096 from its
+            PackedLoader (attn_impl "auto", full remat, loss chunks of
+            1,024), a checkpoint at step 10 and at the end, under
+            deterministic algorithms; the loss must fall; each save's
+            seconds and bytes.  (b) The step-10 checkpoint restored
+            through CheckpointManager and steps 10-19 run again: losses
+            and final state equal to (a)'s bit for bit.  Then a step's
+            wall ms and tokens/s, device busy ms, idle share and top
+            kernels (torch.profiler), peak memory, and model FLOPs
+            utilisation from the step's FLOPs counted on meta
+            (launch.op_cost).  (c) pytest -m cuda over
+            tests/test_torch_train_card.py (the smoke train step on the
+            card against the CPU, the K4/K5 guards).  (d)
+            attn_impl="flash" under gradients must raise.
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
 blocks, M 101, D 2,048) with its time and bound.
 
-Each kernel wrapper counts its launches.  There are twenty-five
+Each kernel wrapper counts its launches.  There are twenty-seven
 main-path runs: the round executor, the sequential executor, the model
 path, generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
 alone), session_repeat, replay, shards, join, model_leaf and
 kmeans_step, encode, service and service_replay, phase 10's stream,
-stream_tail, stream_engine, watch_cli and serve_cli, and phase 11's
-zoo_model, zoo_generate, zoo_whisper and zoo_vlm.  The counts are
+stream_tail, stream_engine, watch_cli and serve_cli, phase 11's
+zoo_model, zoo_generate, zoo_whisper and zoo_vlm, and phase 12's train
+and train_resume.  The counts are
 set to 0 just before each and read just after it, and each run must
 launch its own kernels and no other (round:
 K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
@@ -151,7 +169,8 @@ K1, K3 and K4 = 32 x batches; watch_cli: K1 (UniVote); serve_cli: K1
 and K4 = the smoke config's layers x batches, none on the replay;
 zoo_model: K1, K3 and K4 = 2 x batches (jamba's two attention layers);
 zoo_generate: K4 = 2 x batches and K5 = 2 x decode steps; zoo_whisper:
-K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2).
+K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2; train and train_resume: none,
+as no kernel has a backward).
 Phase 8 must launch
 none.  Checks against plain versions, the join's profiled repeat and
 phase 9's serial, synthetic and state-building runs run outside those
@@ -160,8 +179,8 @@ ticks.  The service's query threads and its dispatch lane launch on
 their current stream, the default stream, where their inputs were made.
 In the kernels' JSON record, "launches" is the sum over the runs and
 "launches_by_path" splits it.  Before it come the numbers of phases
-6-11 ({"session": ...}, {"encode": ...}, {"chunked": ...},
-{"service": ...}, {"stream": ...}, {"zoo": ...}); the
+6-12 ({"session": ...}, {"encode": ...}, {"chunked": ...},
+{"service": ...}, {"stream": ...}, {"zoo": ...}, {"train": ...}); the
 second-to-last lines are the kernels' record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -1283,7 +1302,7 @@ def _peak_gib():
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def _released(log):
+def _released(log, phase: int = 11, tag: str = "zoo"):
     """Device memory the earlier phases left allocated (GiB), and the live
     threads.  Fails above 4 GiB (phase 4's llama3.1-8b alone is 15 GiB),
     naming the largest tensors still alive and what holds each."""
@@ -1292,7 +1311,7 @@ def _released(log):
     import torch
     left = torch.cuda.memory_allocated() / 2**30
     names = sorted(t.name for t in threading.enumerate())
-    log(f"[zoo] before phase 11: {left:.2f} GiB still allocated, "
+    log(f"[{tag}] before phase {phase}: {left:.2f} GiB still allocated, "
         f"{len(names)} threads {names}")
     if left > 4.0:
         big = sorted((o for o in gc.get_objects()
@@ -1302,7 +1321,8 @@ def _released(log):
                                          for r in gc.get_referrers(t)}))
                 for t in big]
         raise AssertionError(f"{left:.1f} GiB not released before phase "
-                             f"11; largest tensors and their holders: {held}")
+                             f"{phase}; largest tensors and their holders: "
+                             f"{held}")
     return left
 
 
@@ -1693,7 +1713,229 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
     return out
 
 
+# phase 12: training at qwen1.5-0.5b's full width
+TRAIN_B, TRAIN_S = 4, 4096   # train_4k's sequence length, 16,384 tokens
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10        # one mid-run save: ~95 s for 6 GB on an H100
+                             # 80GB HBM3 (700 W) machine's host (PERF.md)
+TRAIN_TIMED = 3              # steps timed by wall clock, then profiled
+MFU_PEAK = PEAK_OPS_S["bfloat16"]
+
+
+def phase_train(counted, by_path, log, smi, dev="cuda"):
+    """Phase 12: training on the card.  (a) qwen1.5-0.5b at published
+    widths and full depth, bf16 with a float32 master, random weights
+    from a torch seed: launch.train's loop for 20 steps of B 4 x S 4,096
+    from its PackedLoader (attn_impl "auto", full remat, loss chunks of
+    1,024), a checkpoint at step 10 and at the end, deterministic
+    algorithms on; the loss must fall.  (b) The step-10 checkpoint
+    restored through CheckpointManager into fresh state, steps 10-19 run
+    again: losses and final state equal to (a)'s, bit for bit.  Each
+    save's seconds and bytes, the restore's seconds.  Then tokens/s and
+    ms a step (wall, synchronised), device busy ms and idle share
+    (torch.profiler), peak memory, and model FLOPs utilisation: the
+    step's FLOPs counted once on meta (launch.op_cost) over the step time
+    and the card's bf16 peak.  (c) The float32 smoke train step on the
+    card against the CPU and the K4/K5 guards: pytest -m cuda over
+    tests/test_torch_train_card.py.  (d) attn_impl="flash" under
+    gradients raises here.  Paths train and train_resume launch no
+    kernel."""
+    import collections
+    import shutil
+    import subprocess
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, input_specs, smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import OptConfig, adamw_init, make_train_step
+    from repro_torch.train.trainer import _grads_of
+    from repro_torch.utils.timing import monotonic
+    from repro_torch.utils.tree import tree_leaves, tree_param_count
+
+    dev = torch.device(dev)
+    cfg = get_config("qwen1.5-0.5b").replace(
+        attn_impl="auto", remat_policy="full", loss_chunk=1024)
+    oc = OptConfig(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
+    out = {}
+
+    # (d) first, on the smoke config: the K4 guard under gradients
+    scfg = smoke_config("qwen1.5-0.5b").replace(attn_impl="flash")
+    sp = lm.init_params(scfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    sb = {k: torch.zeros((2, 128), dtype=torch.int32, device=dev)
+          for k in ("tokens", "targets")}
+    try:
+        _grads_of(scfg, sp, sb)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"[train] attn_impl=\"flash\" under gradients raises: {e}")
+    else:
+        raise AssertionError('attn_impl="flash" trained through K4')
+    del sp, sb
+
+    # the step's FLOPs and bytes, counted once on meta
+    abstract = lm.abstract_params(cfg)
+    with OpCost() as cost:
+        make_train_step(cfg, oc)(abstract, adamw_init(abstract, oc),
+                                 input_specs(cfg, ShapeCell(
+                                     "train", TRAIN_S, TRAIN_B, "train")))
+    n_params = tree_param_count(abstract)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e6:.1f} M params in {cfg.dtype}; a step of "
+        f"{TRAIN_B} x {TRAIN_S} counts {cost.flops / 1e12:.2f} TFLOP and "
+        f"{cost.bytes / 1e9:.1f} GB of operation traffic (op_cost, full "
+        f"remat)")
+
+    left = _released(log, 12, "train")
+    loader = launch_train.make_loader(cfg, TRAIN_B, TRAIN_S)
+    ckpt = os.path.join(ROOT, "build", "phase12_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(12),
+                            device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) 20 steps through launch.train's loop
+        t0 = monotonic()
+        p_a, o_a, hist, mgr = counted("train", lambda: launch_train.train_loop(
+            cfg, params, loader, steps=TRAIN_STEPS, ckpt_dir=ckpt,
+            ckpt_every=TRAIN_CKPT_EVERY, mesh_shape={"data": 1, "model": 1}),
+            set())
+        loop_s = monotonic() - t0
+        losses_a = [float(m["loss"]) for m in hist]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del params, hist
+        state_gib = torch.cuda.memory_allocated() / 2**30 - left
+        log(f"[train] (a) {TRAIN_STEPS} steps in {loop_s:.1f} s with "
+            f"{len(mgr.saves)} saves {mgr.saves}; loss {losses_a[0]:.4f} -> "
+            f"{losses_a[-1]:.4f} ({[round(x, 4) for x in losses_a]}); "
+            f"params, master, mu and nu {state_gib:.2f} GiB, peak "
+            f"{peak_gib:.2f} GiB  [{smi}]")
+        if not losses_a[-1] < losses_a[0]:
+            raise AssertionError(f"the loss did not fall: {losses_a}")
+
+        # (b) restore step 10 into fresh state, run steps 10-19 again
+        template = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(13), device=dev)
+        template = {"params": template, "opt": adamw_init(template, oc)}
+        t0 = monotonic()
+        step, tree, _ = CheckpointManager(ckpt).restore(
+            template, step=TRAIN_CKPT_EVERY)
+        torch.cuda.synchronize()
+        restore_s = monotonic() - t0
+        del template
+        step_fn = make_train_step(cfg, oc)
+
+        def resume():
+            p, o, losses = tree["params"], tree["opt"], []
+            for s in range(step, TRAIN_STEPS):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in loader.batch_at(s).items()}
+                p, o, m = step_fn(p, o, batch)
+                losses.append(float(m["loss"]))
+            return p, o, losses
+
+        p_b, o_b, losses_b = counted("train_resume", resume, set())
+        del tree
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = losses_b == losses_a[TRAIN_CKPT_EVERY:] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves([p_a, o_a]),
+                                          tree_leaves([p_b, o_b])))
+    log(f"[train] (b) restored step {step} in {restore_s:.1f} s; steps "
+        f"{step}-{TRAIN_STEPS - 1} again: losses "
+        f"{[round(x, 4) for x in losses_b]}, equal to (a)'s and the final "
+        f"state bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"resumed run differs: {losses_b} against "
+                             f"{losses_a[TRAIN_CKPT_EVERY:]}")
+    del p_b, o_b
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # speed, without the deterministic algorithms, on (a)'s state
+    p, o = p_a, o_a
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in loader.batch_at(0).items()}
+
+    def train_step():
+        nonlocal p, o
+        p, o, _ = step_fn(p, o, batch)
+
+    train_step()
+    walls = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        train_step()
+        torch.cuda.synchronize()
+        walls.append((monotonic() - t0) * 1e3)
+    step_ms = sorted(walls)[len(walls) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_TIMED):
+            train_step()
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / \
+                TRAIN_TIMED
+    if not by_kernel:
+        raise RuntimeError("the profiler recorded no device kernels")
+    busy_ms = sum(by_kernel.values())
+    step_launches = sum(1 for e in prof.events() if e.device_type ==
+                        torch.autograd.DeviceType.CUDA) / TRAIN_TIMED
+    top = [(name, round(ms, 1)) for name, ms in by_kernel.most_common(8)]
+    log(f"[train] a step's kernels by device ms: {top}")
+    del p, o, p_a, o_a, batch, prof
+    tokens = TRAIN_B * TRAIN_S
+    mfu = cost.flops / (step_ms / 1e3) / MFU_PEAK
+    log(f"[train] a step of {tokens} tokens: wall {step_ms:.1f} ms (median "
+        f"of {[round(w, 1) for w in walls]}) = {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s; kernels busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / step_ms:.4f}, {step_launches:.0f} launches; model "
+        f"FLOPs utilisation {mfu:.4f} ({cost.flops / 1e12:.2f} TFLOP a step "
+        f"against {MFU_PEAK / 1e12:.0f} TFLOP/s bf16)  [{smi}]")
+    out["qwen"] = dict(
+        params_m=n_params / 1e6, tokens_a_step=tokens,
+        losses=losses_a, loop_s=loop_s, saves=mgr.saves,
+        restore_s=restore_s, resume_equal=same, peak_gib=peak_gib,
+        state_gib=state_gib, step_ms=step_ms, step_walls_ms=walls,
+        tokens_s=tokens / step_ms * 1e3, busy_ms=busy_ms,
+        idle_share=1 - busy_ms / step_ms, launches_a_step=step_launches,
+        top_kernels_ms=top, flops=cost.flops, op_bytes=cost.bytes, mfu=mfu)
+
+    # (c) the card against the CPU, and the guards, in pytest
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = monotonic()
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
+         "no:cacheprovider", os.path.join("tests", "test_torch_train_card.py")],
+        cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    log(f"[train] (c) pytest -m cuda tests/test_torch_train_card.py: rc "
+        f"{run.returncode}, {tail!r} in {monotonic() - t0:.1f} s")
+    if run.returncode != 0 or " passed" not in tail or "skipped" in tail:
+        raise AssertionError(f"card train tests failed:\n{run.stdout[-3000:]}"
+                             f"\n{run.stderr[-2000:]}")
+    out["card_tests"] = tail
+    return out
+
+
 def main() -> int:
+    # phase 12 runs deterministic algorithms, which need cuBLAS's fixed
+    # workspace; 4096 KiB x 8 is its default on Hopper, so the earlier
+    # phases run as they did
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -2284,6 +2526,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo = phase_zoo(mds, counted, by_path, log, smi)
     log(json.dumps({"zoo": zoo}))
+
+    # ---------------------------------------------------------- 12. train
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(counted, by_path, log, smi)
+    log(json.dumps({"train": train}))
 
     kernels = []
     for name, rec in record.items():

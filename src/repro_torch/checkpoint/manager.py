@@ -29,6 +29,7 @@ import pathlib
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import zlib
@@ -36,6 +37,9 @@ import zlib
 import msgpack
 import numpy as np
 import torch
+
+from repro_torch.utils.timing import monotonic
+from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
 try:  # optional: zstd gives better ratios, zlib keeps the module importable
     import zstandard as zstd
@@ -64,8 +68,44 @@ def _compress(blob: bytes, codec: str) -> bytes:
     if codec == "zstd":
         return zstd.ZstdCompressor(level=3).compress(blob)
     if codec == "zlib":
-        return zlib.compress(blob, level=6)
+        return _zlib_compress(blob)
     return blob
+
+
+ZLIB_PIECE = 64 << 20  # bytes of a blob that one thread deflates
+_ZLIB_WINDOW = 32 << 10
+
+
+def _zlib_compress(blob: bytes) -> bytes:
+    """zlib at level 6, a large blob's pieces deflated by parallel threads.
+
+    As pigz does: each ``ZLIB_PIECE`` is a raw deflate stream primed with
+    the 32 KiB before it (the window a back-reference may reach) and
+    ended on a byte boundary (``Z_SYNC_FLUSH``), the last with
+    ``Z_FINISH``; the pieces go between the zlib header and the adler-32
+    of the whole blob.  The result is one zlib stream, which
+    ``zlib.decompress`` (and so the reference's reader) takes as it
+    takes ``zlib.compress``'s.  zlib releases the interpreter lock while
+    it deflates, so the threads run side by side: one thread deflates
+    bf16 weights held as float32 slowly enough that a full-width train
+    state would take minutes (PERF.md gives the rates)."""
+    n = len(blob)
+    if n <= ZLIB_PIECE:
+        return zlib.compress(blob, level=6)
+    view = memoryview(blob)
+    starts = range(0, n, ZLIB_PIECE)
+
+    def deflate(lo: int) -> bytes:
+        kw = {"zdict": view[lo - _ZLIB_WINDOW:lo]} if lo else {}
+        c = zlib.compressobj(6, zlib.DEFLATED, -15, **kw)
+        hi = min(lo + ZLIB_PIECE, n)
+        return c.compress(view[lo:hi]) + c.flush(
+            zlib.Z_FINISH if hi == n else zlib.Z_SYNC_FLUSH)
+
+    with ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1)) as ex:
+        pieces = list(ex.map(deflate, starts))
+    return b"".join([b"\x78\x9c", *pieces,
+                     zlib.adler32(blob).to_bytes(4, "big")])
 
 
 def _decompress(blob: bytes, codec: str) -> bytes:
@@ -80,33 +120,6 @@ def _decompress(blob: bytes, codec: str) -> bytes:
     if codec == "none":
         return blob
     raise ValueError(f"unknown checkpoint codec: {codec!r}")
-
-
-def _flatten_with_paths(tree, prefix=()):
-    """``(key, leaf)`` pairs in the reference's ``jax.tree_util`` order:
-    dict keys sorted, list and tuple items by index, ``None`` an empty
-    subtree; a key is the path's parts joined by ``/``."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in _flatten_with_paths(tree[k], prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, sub in enumerate(tree)
-                for kv in _flatten_with_paths(sub, prefix + (i,))]
-    return [("/".join(str(p) for p in prefix), tree)]
-
-
-def _map_leaves(tree, fn):
-    """``tree`` with every leaf replaced by ``fn(leaf)`` (same structure);
-    leaves are visited in ``_flatten_with_paths`` order."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map_leaves(tree[k], fn) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn) for v in tree)
-    return fn(tree)
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -127,7 +140,7 @@ def save_pytree(tree, path: pathlib.Path, extra_meta: dict = None,
     # TID251 duration-clock ban does not apply
     tmp = path.with_name(path.name + f".tmp-{os.getpid()}-{int(time.time()*1e3)}")  # noqa: TID251
     tmp.mkdir(parents=True, exist_ok=False)
-    flat = _flatten_with_paths(tree)
+    flat = tree_leaves_with_path(tree)
     manifest = {"leaves": [], "extra": extra_meta or {},
                 "created": time.time(), "codec": codec}  # noqa: TID251
     shard_path = tmp / ("shard_000.msgpack" + _SHARD_EXT[codec])
@@ -170,7 +183,7 @@ def load_pytree(path: pathlib.Path, template=None, verify: bool = True):
 
     if template is None:
         return by_key, manifest["extra"]
-    keys = iter(k for k, _ in _flatten_with_paths(template))
+    keys = iter(k for k, _ in tree_leaves_with_path(template))
 
     def restore(tmpl):
         arr = by_key[next(keys)]
@@ -178,7 +191,7 @@ def load_pytree(path: pathlib.Path, template=None, verify: bool = True):
             return torch.from_numpy(arr.copy()).to(tmpl.device, tmpl.dtype)
         return arr.astype(np.asarray(tmpl).dtype)
 
-    return _map_leaves(template, restore), manifest["extra"]
+    return tree_map(restore, template), manifest["extra"]
 
 
 class CheckpointManager:
@@ -187,6 +200,7 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self.saves: list = []
 
     def step_path(self, step: int) -> pathlib.Path:
         return self.dir / f"step_{step:08d}"
@@ -209,12 +223,23 @@ class CheckpointManager:
 
     def save(self, step: int, tree, extra_meta: dict = None,
              async_: bool = False):
+        """Snapshot ``tree`` to host arrays, then write it (on a thread
+        with ``async_``).  Each save appends ``{"step", "snapshot_s",
+        "write_s", "bytes"}`` to ``self.saves`` once written."""
         self.wait()
-        host_tree = _map_leaves(tree, _to_numpy)  # snapshot
+        t0 = monotonic()
+        host_tree = tree_map(_to_numpy, tree)  # snapshot
+        snapshot_s = monotonic() - t0
 
         def work():
+            t1 = monotonic()
             save_pytree(host_tree, self.step_path(step),
                         dict(extra_meta or {}, step=step))
+            self.saves.append({
+                "step": step, "snapshot_s": snapshot_s,
+                "write_s": monotonic() - t1,
+                "bytes": sum(f.stat().st_size
+                             for f in self.step_path(step).iterdir())})
             self._gc()
 
         if async_:

@@ -5,7 +5,9 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from repro_torch.models.config import ModelConfig
+import torch
+
+from repro_torch.models.config import ModelConfig, ShapeCell
 
 _ARCH_MODULES = [
     "falcon_mamba_7b",
@@ -66,3 +68,39 @@ _LONG_SKIP = {
 
 def long_context_skip_reason(name: str):
     return _LONG_SKIP.get(name)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> dict:
+    """Meta inputs for the step function selected by shape.kind.
+
+    train/prefill: token batch (+ modality stubs).  decode: one new token
+    per sequence + a meta KV cache covering shape.seq_len (the port's
+    cache layout: one dict per superblock).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    dt = getattr(torch, cfg.dtype)
+
+    if shape.kind in ("train", "prefill"):
+        P = cfg.num_prefix_embeds
+        spec = {"tokens": meta((B, S - P), torch.int32)}
+        if shape.kind == "train":
+            spec["targets"] = meta((B, S - P), torch.int32)
+        if P:
+            spec["prefix_embeds"] = meta((B, P, cfg.d_model), dt)
+        if cfg.is_encdec:
+            spec["enc_frames"] = meta((B, cfg.encoder_len, cfg.d_model), dt)
+        return spec
+
+    # decode: 1 new token against a cache of S
+    from repro_torch.models import lm
+    return {
+        "tokens": meta((B,), torch.int32),
+        "pos": meta((B,), torch.int32),
+        "cache": lm.make_cache(cfg, B, S, device="meta"),
+    }

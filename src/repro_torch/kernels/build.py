@@ -145,6 +145,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {text} ({err})")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would differentiate through a kernel that has
+    no backward (K4 and K5, as the reference's Pallas kernels have no JVP
+    rule): grad mode is on and an input requires grad.  The output of a
+    ctypes launch carries no ``grad_fn``, so without this check the
+    gradients upstream of the kernel would silently be zero."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward; differentiate through "
+            'attn_impl="flash-ref" (or "auto"/"plain"), or call it under '
+            "torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor,
                  contiguous: bool = True) -> None:
     """A kernel takes CUDA tensors on one device, contiguous unless the

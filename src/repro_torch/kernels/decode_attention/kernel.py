@@ -23,6 +23,7 @@ def decode_attention_cuda(q, k, v, lengths):
     """
     name = "decode_attention_cuda"
     build.require_cuda(name, q, k, v, lengths, contiguous=False)
+    build.refuse_grad(name, q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -40,6 +40,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     build.require_cuda(name, q, k, v, contiguous=False)
+    build.refuse_grad(name, q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B * Sq == 0:

@@ -26,7 +26,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.api import shard_act
 from repro_torch.models.config import ModelConfig
 
 # --------------------------------------------------------------------------
@@ -247,11 +249,18 @@ def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
     CUDA kernel on the card, its plain version on the CPU);
     ``attn_impl="flash-ref"`` runs the plain version everywhere.  Mask
     positions are sequence-local 0..S-1; ``positions`` feeds RoPE only.
+
+    The kernel has no backward, as the reference's Pallas kernel has no
+    JVP rule, so ``attn_impl="flash"`` raises on both devices where
+    autograd would differentiate it; ``"flash-ref"`` trains.
     """
+    from repro_torch.kernels.build import refuse_grad
     from repro_torch.kernels.flash_attention.ops import flash_attention
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x)
+    if cfg.attn_impl == "flash":
+        refuse_grad('attn_impl="flash"', q, k, v)
     if positions is None:
         positions = _positions(S, x.device)
     if cfg.pos_type == "rope":
@@ -436,11 +445,14 @@ def moe_ffn_tokens(cfg: ModelConfig, p, x):
     bidx = torch.arange(B, device=x.device)[:, None]
     buf[bidx, dst] = x_rep     # rows at the sentinel E*C are thrown away
     buf = buf[:, :E * C].reshape(B, E, C, D)
+    buf = shard_act(buf, ("batch", "experts", None, None))
 
     g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
     u = torch.einsum("becd,edf->becf", buf, p["w_up"])
     h = F.silu(g.float()).to(x.dtype) * u
+    h = shard_act(h, ("batch", "experts", None, "ffn"))
     out_buf = torch.einsum("becf,efd->becd", h, p["w_down"])
+    out_buf = shard_act(out_buf, ("batch", "experts", None, None))
     out_flat = torch.cat([out_buf.reshape(B, E * C, D),
                           out_buf.new_zeros((B, 1, D))], dim=1)
 
@@ -487,19 +499,46 @@ def _mamba_gates(cfg, p, xr):
     return dt, Bc, Cc                      # (B,S,di), (B,S,ds), (B,S,ds)
 
 
+class _Recurrence(torch.autograd.Function):
+    """h_t = a_t h_{t-1} + b_t along axis 1 from h0 -> every h_t, written
+    over ``b`` in place (one ``addcmul_`` a position; ``b`` is a
+    temporary of the caller's).  Autograd cannot differentiate those
+    writes, so the backward is written here: with G_t the loss's
+    gradient with respect to h_t through every later step, G_t = g_t +
+    a_{t+1} G_{t+1}, and the inputs' gradients are G_t (b_t),
+    G_t h_{t-1} (a_t) and a_0 G_0 (h0)."""
+
+    @staticmethod
+    def forward(ctx, h0, a, b):
+        b[:, 0].addcmul_(a[:, 0], h0)
+        for t in range(1, b.shape[1]):
+            b[:, t].addcmul_(a[:, t], b[:, t - 1])
+        ctx.mark_dirty(b)
+        ctx.save_for_backward(h0, a, b)
+        return b
+
+    @staticmethod
+    def backward(ctx, g):
+        h0, a, hs = ctx.saved_tensors
+        G = g.clone(memory_format=torch.contiguous_format)
+        for t in range(G.shape[1] - 2, -1, -1):
+            G[:, t].addcmul_(a[:, t + 1], G[:, t + 1])
+        prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        return a[:, 0] * G[:, 0], G * prev, G
+
+
 def _ssm_chunk(h, dt_c, B_c, C_c, x_c, A, Dp):
     """One chunk of the selective scan, carried from state h (B,di,ds).
 
     h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t, stepped over the chunk in
     place of the reference's associative scan (the same recurrence; the
-    float order differs).  The chunk's (B, c, di, ds) decay and input
-    tensors are its transient memory.  Returns (h_final, y (B,c,di)).
+    float order differs) by ``_Recurrence``, which differentiates it.
+    The chunk's (B, c, di, ds) decay and input tensors are its transient
+    memory.  Returns (h_final, y (B,c,di)).
     """
     a = torch.exp(dt_c[..., None] * A)                       # (B,c,di,ds)
-    hs = (dt_c * x_c)[..., None] * B_c[:, :, None, :]        # b, then h_t
-    hs[:, 0].addcmul_(a[:, 0], h)
-    for t in range(1, hs.shape[1]):
-        hs[:, t].addcmul_(a[:, t], hs[:, t - 1])
+    b = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
+    hs = _Recurrence.apply(h, a, b)
     y = torch.einsum("bcds,bcs->bcd", hs, C_c) + Dp * x_c
     return hs[:, -1].clone(), y
 
@@ -513,7 +552,10 @@ def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
     """
     B, S, D = x.shape
     di, dc = cfg.d_inner, cfg.ssm_conv
-    xr, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)   # (B,S,di) each
+    xz = shard_act(x @ p["in_proj"], ("batch", None, "inner"))
+    xr, z = torch.chunk(xz, 2, dim=-1)                 # (B,S,di) each
+    xr = shard_act(xr, ("batch", None, "inner"))
+    z = shard_act(z, ("batch", None, "inner"))
 
     # causal depthwise conv along S
     pad = (x.new_zeros((B, dc - 1, di)) if conv0 is None
@@ -523,20 +565,27 @@ def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
     xc = sum(xp[:, i:i + S, :] * p["conv_w"][i] for i in range(dc)) \
         + p["conv_b"]
     xc = F.silu(xc.float()).to(x.dtype)
+    xc = shard_act(xc, ("batch", None, "inner"))
 
     dt, Bc, Cc = _mamba_gates(cfg, p, xc)
+    dt = shard_act(dt, ("batch", None, "inner"))
     A = -torch.exp(p["A_log"])                         # (di, ds)
     ck = min(cfg.ssm_chunk, S)
     xcf = xc.float()
     h = (torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
                      device=x.device) if h0 is None else h0)
+    # as the reference's remat_inner: where autograd records, each chunk's
+    # (B, chunk, di, ds) stacks are recomputed in the backward, not kept
+    inner = cfg.remat_inner and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, Bc, Cc, xcf, A, h))
     ys = []
     for lo in range(0, S, ck):  # full chunks, then the tail
         sl = slice(lo, min(lo + ck, S))
-        h, y = _ssm_chunk(h, dt[:, sl], Bc[:, sl], Cc[:, sl], xcf[:, sl], A,
-                          p["D"])
+        args = (h, dt[:, sl], Bc[:, sl], Cc[:, sl], xcf[:, sl], A, p["D"])
+        h, y = (checkpoint(_ssm_chunk, *args, use_reentrant=False) if inner
+                else _ssm_chunk(*args))
         ys.append(y)
-    y = torch.cat(ys, dim=1)
+    y = shard_act(torch.cat(ys, dim=1), ("batch", None, "inner"))
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ p["out_proj"], (h, conv_state)
 

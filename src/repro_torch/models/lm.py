@@ -14,18 +14,29 @@ attention layer's entry holds ``"k"``/``"v"``, a Mamba layer's ``"h"``
 static cross-attention ``"xk"``/``"xv"``.  ``init_layer`` and
 ``encoder_params_from_jax`` also serve the bidirectional embedding
 encoder (``repro_torch.embeddings.encoder``).
+
+Where autograd records (training), each superblock runs under
+``cfg.remat_policy``, as the reference's ``_remat``: "full" recomputes
+the superblock in the backward, "dots" keeps its matmul outputs and
+recomputes the rest, "none" keeps everything.  Under ``no_grad`` and
+``inference_mode`` (serving) nothing is wrapped.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.api import shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves, tree_map_with_path_str
 
 # the whisper-style encoder's one-layer superblock (the reference's)
 _ENC_SPEC = LayerSpec(kind="attn", ffn="dense")
@@ -241,6 +252,68 @@ def _superblock(tree, i: int, dev: torch.device):
     return _from_numpy(np.asarray(tree)[i], dev)
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors (shapes and dtypes, no storage):
+    the dry run's stand-in, as the reference's ``eval_shape`` tree."""
+    return init_params(cfg, None, device="meta")
+
+
+_SUFFIX_AXES = {
+    ("embed", "table"): ("vocab", "embed"),
+    ("lm_head", "w"): ("vocab", "embed"),
+    ("attn", "wq"): ("embed", "heads"),
+    ("attn", "wk"): ("embed", "kv_heads"),
+    ("attn", "wv"): ("embed", "kv_heads"),
+    ("attn", "wo"): ("heads", "embed"),
+    ("attn", "bq"): ("heads",),
+    ("attn", "bk"): ("kv_heads",),
+    ("attn", "bv"): ("kv_heads",),
+    ("xattn", "wq"): ("embed", "heads"),
+    ("xattn", "wk"): ("embed", "kv_heads"),
+    ("xattn", "wv"): ("embed", "kv_heads"),
+    ("xattn", "wo"): ("heads", "embed"),
+    ("ffn", "w_gate"): ("embed", "ffn"),
+    ("ffn", "w_up"): ("embed", "ffn"),
+    ("ffn", "w_down"): ("ffn", "embed"),
+    ("ffn", "w_in"): ("embed", "ffn"),
+    ("ffn", "w_out"): ("ffn", "embed"),
+    ("ffn", "b_in"): ("ffn",),
+    ("ffn", "b_out"): (None,),
+    ("moe", "router"): ("embed", None),
+    ("moe", "w_gate"): ("experts", "embed", "ffn"),
+    ("moe", "w_up"): ("experts", "embed", "ffn"),
+    ("moe", "w_down"): ("experts", "ffn", "embed"),
+    ("mamba", "in_proj"): ("embed", "inner"),
+    ("mamba", "conv_w"): (None, "inner"),
+    ("mamba", "conv_b"): ("inner",),
+    ("mamba", "x_proj"): ("inner", None),
+    ("mamba", "dt_proj"): (None, "inner"),
+    ("mamba", "dt_bias"): ("inner",),
+    ("mamba", "A_log"): ("inner", None),
+    ("mamba", "D"): ("inner",),
+    ("mamba", "out_proj"): ("inner", "embed"),
+}
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """Tree of logical-axis tuples matching ``init_params``'s structure.
+
+    The reference's names; a superblock's leaves have no stacked axis
+    here, so each tuple is the reference's without its leading None.
+    Norms and other unnamed leaves are replicated (all None)."""
+
+    def assign(path: str, leaf):
+        axes = _SUFFIX_AXES.get(tuple(path.split("/")[-2:]))
+        if axes is None:
+            axes = (None,) * leaf.ndim
+        if len(axes) != leaf.ndim:
+            raise ValueError(f"{path}: axes {axes} for shape "
+                             f"{tuple(leaf.shape)}")
+        return tuple(axes)
+
+    return tree_map_with_path_str(assign, abstract_params(cfg))
+
+
 def cache_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> list:
     """The reference's ``make_cache``/``prefill`` cache (numpy arrays,
     superblocks stacked on a leading axis) as the port's cache on
@@ -312,26 +385,65 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
     return h, aux
 
 
+def _superblock_fwd(cfg: ModelConfig, sb, h, positions, enc_out,
+                    sb_cache=None, max_len=None):
+    """One superblock's layers -> (h, aux); with ``sb_cache`` (prefill)
+    each layer's decode cache goes into ``sb_cache["l{i}"]``."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, spec in enumerate(cfg.pattern):
+        entry = None if sb_cache is None else sb_cache.setdefault(f"l{i}", {})
+        h, a = _apply_layer(cfg, spec, sb[f"l{i}"], h, positions, enc_out,
+                            entry, max_len)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matmuls without batch
+    dimensions (the reference's ``dots_with_no_batch_dims_saveable``:
+    projections, FFNs, experts' products flattened to ``mm``), recompute
+    everything else, the attention's batched products included."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, p, fn, *args):
+    """fn(*args) under ``cfg.remat_policy`` when autograd records through
+    it (grad mode on, and an argument or a leaf of its parameters ``p``
+    requires grad), as the reference's ``_remat`` wraps each superblock;
+    a plain call otherwise."""
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*tree_leaves(p), *args)
+        if isinstance(t, torch.Tensor))
+    if cfg.remat_policy == "none" or not records:
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+            create_selective_checkpoint_contexts, _save_matmuls))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _run_stack(cfg: ModelConfig, params, h, positions, enc_out,
                max_len=None):
     """Every superblock in turn -> (h, aux, cache).  The aux adds up by
     superblock as the reference's scan carries it; ``cache`` is built
-    only when ``max_len`` is given (prefill), else None."""
+    only when ``max_len`` is given (prefill), else None.  Without a
+    cache each superblock runs under ``_remat``."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = None if max_len is None else []
     for sb in params["blocks"]:
-        sb_aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        sb_cache = {}
-        for i, spec in enumerate(cfg.pattern):
-            entry = None if cache is None else sb_cache.setdefault(f"l{i}",
-                                                                   {})
-            h, a = _apply_layer(cfg, spec, sb[f"l{i}"], h, positions,
-                                enc_out, entry, max_len)
-            if a is not None:
-                sb_aux = sb_aux + a
+        if cache is None:
+            h, sb_aux = _remat(cfg, sb, partial(_superblock_fwd, cfg, sb),
+                               h, positions, enc_out)
+        else:
+            cache.append({})
+            h, sb_aux = _superblock_fwd(cfg, sb, h, positions, enc_out,
+                                        cache[-1], max_len)
         aux = aux + sb_aux
-        if cache is not None:
-            cache.append(sb_cache)
     return h, aux, cache
 
 
@@ -348,13 +460,15 @@ def encode(cfg: ModelConfig, params, enc_frames):
     pos = torch.arange(h.shape[1], device=h.device)[None, :]
     h = h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
     for blk in params["enc_blocks"]:
-        p = blk["l0"]
-        hn = L.apply_norm(cfg, p["norm"], h)
-        h = h + L.attention_plain(cfg, p["attn"], hn, causal=False,
-                                  rope=False)
-        hf = L.apply_norm(cfg, p["ffn_norm"], h)
-        h = h + L.apply_mlp(cfg, p["ffn"], hf)
+        h = _remat(cfg, blk, partial(_encoder_layer, cfg, blk["l0"]), h)
     return L.apply_norm(cfg, params["enc_final_norm"], h)
+
+
+def _encoder_layer(cfg: ModelConfig, p, h):
+    hn = L.apply_norm(cfg, p["norm"], h)
+    h = h + L.attention_plain(cfg, p["attn"], hn, causal=False, rope=False)
+    hf = L.apply_norm(cfg, p["ffn_norm"], h)
+    return h + L.apply_mlp(cfg, p["ffn"], hf)
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
@@ -365,6 +479,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     _check_supported(cfg)
     h, positions, enc_out = _inputs(cfg, params, tokens, prefix_embeds,
                                     enc_frames)
+    h = shard_act(h, ("batch", None, None))
     h, aux, _ = _run_stack(cfg, params, h, positions, enc_out)
     return h, aux
 
@@ -399,8 +514,32 @@ def hidden_logits(cfg: ModelConfig, params, h):
     if h2.dtype == torch.float32 or h2.device.type == "cpu":
         out = h2.float() @ table.float().T
     else:
-        out = torch.mm(h2, table.T, out_dtype=torch.float32)
-    return out.reshape(*h.shape[:-1], table.shape[0])
+        out = _MatmulF32.apply(h2, table)
+    out = out.reshape(*h.shape[:-1], table.shape[0])
+    return shard_act(out, ("batch", None, "vocab")) if out.ndim == 3 else out
+
+
+class _MatmulF32(torch.autograd.Function):
+    """h (N, D) @ table (V, D).T in the model type into a float32 result.
+
+    ``torch.mm(..., out_dtype=)`` has no derivative, so the backward is
+    written here: the float32 cotangent is rounded to the model type
+    for its two products (each into the model type, as the reference
+    casts the cotangents back), as the TPU's default-precision dot takes
+    the reference's float32 cotangent through bf16 passes.  A float32
+    table (622 MB at qwen1.5-0.5b's width) is never made."""
+
+    @staticmethod
+    def forward(ctx, h2, table):
+        ctx.save_for_backward(h2, table)
+        return torch.mm(h2, table.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, table = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return (g @ table if ctx.needs_input_grad[0] else None,
+                g.T @ h2 if ctx.needs_input_grad[1] else None)
 
 
 def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
@@ -453,6 +592,27 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype=None,
             for kv in ("xk", "xv"):
                 e[kv] = torch.zeros((batch, cfg.encoder_len, KV, hd),
                                     dtype=kv_dtype, device=dev)
+        return e
+
+    return [{f"l{i}": entry(spec) for i, spec in enumerate(cfg.pattern)}
+            for _ in range(cfg.n_superblocks)]
+
+
+def cache_logical_axes(cfg: ModelConfig, long_context: bool = False) -> list:
+    """Logical axes tree matching ``make_cache``'s structure (one dict a
+    superblock; the reference's tuples without their stacked axis)."""
+    seq_axis = "kv_seq_long" if long_context else "kv_seq"
+
+    def entry(spec):
+        if spec.kind == "attn":
+            e = {kv: ("kv_batch", seq_axis, "kv_heads", None)
+                 for kv in ("k", "v")}
+        else:
+            e = {"h": ("kv_batch", "inner", None),
+                 "conv": ("kv_batch", None, "inner")}
+        if cfg.is_encdec:
+            for kv in ("xk", "xv"):
+                e[kv] = ("kv_batch", None, "kv_heads", None)
         return e
 
     return [{f"l{i}": entry(spec) for i, spec in enumerate(cfg.pattern)}

@@ -47,3 +47,28 @@ def test_example_refuses_cuda_without_a_card(name, monkeypatch):
     mod = importlib.import_module(f"repro_torch.examples.{name}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main()
+
+
+def test_train_backbone_tiny_trains_and_resumes(tmp_path, capsys):
+    """The seventh example at --size tiny: the loss falls (its inline
+    assert), a checkpoint lands every --ckpt-every steps and at the end,
+    and a rerun with more steps resumes from the newest."""
+    from repro_torch.examples import train_backbone
+    argv = ["--size", "tiny", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+            "3"]
+    train_backbone.main(argv + ["--steps", "8"], device="cpu")
+    out = capsys.readouterr().out
+    assert out.startswith("model: 0.9M params") and "step    0 loss=" in out
+    assert sorted(p.name for p in tmp_path.glob("step_*")) == [
+        "step_00000006", "step_00000008"]
+    train_backbone.main(argv + ["--steps", "10"], device="cpu")
+    out = capsys.readouterr().out
+    assert "restored from checkpoint @ step 8" in out
+    assert "step    9 loss=" in out and "step    0 loss=" not in out
+
+
+def test_train_backbone_refuses_cuda_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.examples import train_backbone
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_backbone.main(["--size", "tiny", "--ckpt-dir", str(tmp_path)])
