@@ -143,18 +143,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             tests/test_torch_train_card.py (the smoke train step on the
             card against the CPU, the K4/K5 guards).  (d)
             attn_impl="flash" under gradients must raise.
+13. sharded the partitioned program, phase_sharded.  (a) Phase 12's
+            model, seed and loader through launch.train's loop for 3
+            steps on a ("data", "model") = (1, 1) DeviceMesh over a
+            one-rank NCCL group (parameters, optimizer state and batches
+            as DTensors): losses, grad norms and state equal to the
+            unpartitioned steps bit for bit; ms a step, host enqueue ms and
+            idle share each side.  (b) The elastic restore both ways,
+            exact, and a step after it.  (c) python -m
+            repro_torch.launch.dryrun for qwen1.5-0.5b x train_4k x pod
+            and multipod and jamba-v0.1-52b x decode_32k x pod, each in a
+            process of its own: collectives by kind, the three roofline
+            terms, argument and temporary bytes a device.  (d) pytest -m
+            cuda over tests/test_torch_sharded_card.py.
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
 blocks, M 101, D 2,048) with its time and bound.
 
-Each kernel wrapper counts its launches.  There are twenty-seven
+Each kernel wrapper counts its launches.  There are twenty-nine
 main-path runs: the round executor, the sequential executor, the model
 path, generate, phase 6's session, leaf_RV-Q1 and leaf_RV-Q2 (each leaf
 alone), session_repeat, replay, shards, join, model_leaf and
 kmeans_step, encode, service and service_replay, phase 10's stream,
 stream_tail, stream_engine, watch_cli and serve_cli, phase 11's
-zoo_model, zoo_generate, zoo_whisper and zoo_vlm, and phase 12's train
-and train_resume.  The counts are
+zoo_model, zoo_generate, zoo_whisper and zoo_vlm, phase 12's train
+and train_resume, and phase 13's sharded_train and sharded_resume.  The
+counts are
 set to 0 just before each and read just after it, and each run must
 launch its own kernels and no other (round:
 K1, K3; sequential: K1, K2; model: K1, K3 and K4 = 32 x the engine's
@@ -169,8 +183,9 @@ K1, K3 and K4 = 32 x batches; watch_cli: K1 (UniVote); serve_cli: K1
 and K4 = the smoke config's layers x batches, none on the replay;
 zoo_model: K1, K3 and K4 = 2 x batches (jamba's two attention layers);
 zoo_generate: K4 = 2 x batches and K5 = 2 x decode steps; zoo_whisper:
-K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2; train and train_resume: none,
-as no kernel has a backward).
+K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2; train, train_resume,
+sharded_train and sharded_resume: none, as no kernel has a backward and
+K4 and K5 refuse DTensors).
 Phase 8 must launch
 none.  Checks against plain versions, the join's profiled repeat and
 phase 9's serial, synthetic and state-building runs run outside those
@@ -179,8 +194,9 @@ ticks.  The service's query threads and its dispatch lane launch on
 their current stream, the default stream, where their inputs were made.
 In the kernels' JSON record, "launches" is the sum over the runs and
 "launches_by_path" splits it.  Before it come the numbers of phases
-6-12 ({"session": ...}, {"encode": ...}, {"chunked": ...},
-{"service": ...}, {"stream": ...}, {"zoo": ...}, {"train": ...}); the
+6-13 ({"session": ...}, {"encode": ...}, {"chunked": ...},
+{"service": ...}, {"stream": ...}, {"zoo": ...}, {"train": ...},
+{"sharded": ...}); the
 second-to-last lines are the kernels' record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -1749,6 +1765,7 @@ def phase_train(counted, by_path, log, smi, dev="cuda"):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config, input_specs, smoke_config
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.op_cost import OpCost
     from repro_torch.models import lm
     from repro_torch.models.config import ShapeCell
@@ -1806,8 +1823,8 @@ def phase_train(counted, by_path, log, smi, dev="cuda"):
         t0 = monotonic()
         p_a, o_a, hist, mgr = counted("train", lambda: launch_train.train_loop(
             cfg, params, loader, steps=TRAIN_STEPS, ckpt_dir=ckpt,
-            ckpt_every=TRAIN_CKPT_EVERY, mesh_shape={"data": 1, "model": 1}),
-            set())
+            ckpt_every=TRAIN_CKPT_EVERY,
+            mesh=Mesh(("data", "model"), (1, 1))), set())
         loop_s = monotonic() - t0
         losses_a = [float(m["loss"]) for m in hist]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1929,6 +1946,318 @@ def phase_train(counted, by_path, log, smi, dev="cuda"):
                              f"\n{run.stderr[-2000:]}")
     out["card_tests"] = tail
     return out
+
+
+SHARD_STEPS = 3              # phase 13: steps of the partitioned loop
+SHARD_TIMED = 2              # steps timed a side, then one profiled
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", "both"),
+                ("jamba-v0.1-52b", "decode_32k", "pod"))
+
+
+def _step_times(step_fn, state, batch, log, tag):
+    """Wall ms a step (synchronised), the host's ms to enqueue one (the call
+    alone, before the card finishes), and the device's busy ms and idle
+    share under torch.profiler (one step).  ``state`` is a one-item list
+    holding (params, opt), advanced by each step."""
+    import torch
+    from repro_torch.utils.timing import monotonic
+
+    def one():
+        p, o = state[0]
+        p, o, _ = step_fn(p, o, batch)
+        state[0] = (p, o)
+
+    walls, hosts = [], []
+    for _ in range(SHARD_TIMED):
+        torch.cuda.synchronize()
+        t0 = monotonic()
+        one()
+        hosts.append((monotonic() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((monotonic() - t0) * 1e3)
+    busy, launches = _busy_ms(one, 1)
+    wall = min(walls)
+    log(f"[sharded] {tag}: a step {wall:.1f} ms wall ({[round(w, 1) for w in walls]}), "
+        f"the host enqueues it in {min(hosts):.1f} ms, kernels busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}, {launches:.0f} "
+        f"launches")
+    return {"step_ms": wall, "walls_ms": walls, "host_ms": min(hosts),
+            "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "launches_a_step": launches}
+
+
+def phase_sharded(counted, by_path, log, smi, dev="cuda"):
+    """Phase 13: the partitioned program on the card.  (a) Phase 12's
+    qwen1.5-0.5b (published widths and depth, bf16 with a float32 master,
+    B 4 x S 4,096, "auto", full remat; its seed and loader) trained
+    SHARD_STEPS steps by launch.train's loop on a ("data", "model") = (1,
+    1) DeviceMesh over a one-rank NCCL group: parameters, optimizer state
+    and batches are DTensors placed by their logical axes.  Losses, grad
+    norms and the final state must equal the same steps of the
+    unpartitioned step bit for bit (deterministic algorithms on, as in
+    phase 12).  ms a step, the host's ms to enqueue one and the idle share,
+    each side.  (b) The elastic restore: (a)'s checkpoint restored
+    unsharded equals the unpartitioned state, and an unsharded checkpoint
+    of the unpartitioned state (codec none) restored onto (a)'s
+    placements equals (a)'s state, block for block; one step on each
+    side after it, equal.  (c) The dry run in processes of their own
+    (python -m repro_torch.launch.dryrun; the fake group must be its
+    process's default group) for DRYRUN_CELLS: collective bytes by kind,
+    the three roofline terms and the dominant one, argument and temporary
+    GiB a device.  (d) pytest -m cuda tests/test_torch_sharded_card.py.
+    (c) and (d) start with the phase and run beside (a) and (b); every
+    process the phase starts is stopped before it returns or fails.
+    Paths sharded_train and sharded_resume launch no kernel."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager, save_pytree
+    from repro_torch.checkpoint.manager import _to_numpy
+    from repro_torch.configs import get_config, input_logical_axes
+    from repro_torch.distributed.api import (distribute_tree, gather_tree,
+                                             sharding_context,
+                                             tree_placements)
+    from repro_torch.distributed.rules import MeshRules
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import OptConfig, adamw_init, make_train_step
+    from repro_torch.train.optimizer import opt_logical_axes
+    from repro_torch.utils.timing import monotonic
+    from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
+                                        tree_map)
+
+    dev = torch.device(dev)
+    cfg = get_config("qwen1.5-0.5b").replace(
+        attn_impl="auto", remat_policy="full", loss_chunk=1024)
+    # train_loop's optimizer for SHARD_STEPS steps
+    oc = OptConfig(lr=3e-4, warmup_steps=10, total_steps=SHARD_STEPS)
+    step_fn = make_train_step(cfg, oc)
+    loader = launch_train.make_loader(cfg, TRAIN_B, TRAIN_S)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in loader.batch_at(s).items()}
+               for s in range(SHARD_STEPS + 1 + 2 * SHARD_TIMED)]
+    build = os.path.join(ROOT, "build")
+    ckpt_p = os.path.join(build, "phase13_ckpt_sharded")
+    ckpt_u = os.path.join(build, "phase13_ckpt_whole")
+    store = os.path.join(build, "phase13_store")
+    for path in (ckpt_p, ckpt_u, store):
+        shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(build, exist_ok=True)
+    left = _released(log, 13, "sharded")
+    init = lambda: lm.init_params(  # noqa: E731 phase 12's weights
+        cfg, torch.Generator(device=dev).manual_seed(12), device=dev)
+    out = {}
+    same = lambda a, b: all(  # noqa: E731
+        torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # no network
+    t_phase = monotonic()
+    # (c) and (d) run in processes of their own, started here so that they
+    # overlap (a) and (b): the dry run needs the host alone, the card
+    # tests little of the card, and both finish before (a)'s timed steps
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for name, argv in [
+            *((f"dryrun_{arch}_{shape}", [
+                "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                shape, "--mesh", meshes, "--force", "--tag", "phase13"])
+              for arch, shape, meshes in DRYRUN_CELLS),
+            ("card_tests", ["-m", "pytest", "-q", "-m", "cuda", "-p",
+                            "no:cacheprovider", os.path.join(
+                                "tests", "test_torch_sharded_card.py")])]:
+        log_path = os.path.join(build, f"phase13_{name}.log")
+        fh = open(log_path, "w")
+        procs.append((name, log_path, fh, subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT, env=env, text=True,
+            stdout=fh, stderr=subprocess.STDOUT)))
+    state_u = []  # (params, opt) of the unpartitioned steps
+    try:
+        torch.use_deterministic_algorithms(True)
+        try:
+            # the unpartitioned steps, as train_loop runs them
+            params = init()
+            state_u.append((params, adamw_init(params, oc)))
+            hist_u = []
+            for s in range(SHARD_STEPS):
+                p, o, m = step_fn(*state_u[0], batches[s])
+                state_u[0] = (p, o)
+                hist_u.append({k: float(v) for k, v in m.items()})
+            del params, p, o
+
+            dist.init_process_group("nccl", store=dist.FileStore(store, 1),
+                                    rank=0, world_size=1)
+            try:
+                mesh = make_local_mesh(1, 1, device=dev)
+                rules = MeshRules(mesh)
+                axes = {"params": lm.param_logical_axes(cfg)}
+                axes["opt"] = opt_logical_axes(axes["params"], oc)
+
+                # (a) the partitioned loop
+                t0 = monotonic()
+                p_p, o_p, hist, mgr = counted(
+                    "sharded_train", lambda: launch_train.train_loop(
+                        cfg, init(), loader, steps=SHARD_STEPS, ckpt_dir=ckpt_p,
+                        ckpt_every=TRAIN_CKPT_EVERY, mesh=mesh), set())
+                loop_s = monotonic() - t0
+                hist_p = [{k: float(v) for k, v in m.items()} for m in hist]
+                kinds = sorted({type(x).__name__ for x in tree_leaves([p_p, o_p])})
+                state_p = {"params": p_p, "opt": o_p}
+                whole_p = gather_tree(state_p)
+                state_eq = same(whole_p, {"params": state_u[0][0],
+                                          "opt": state_u[0][1]})
+                metrics_eq = hist_p == hist_u
+                log(f"[sharded] (a) {SHARD_STEPS} steps of train_loop on mesh "
+                    f"{mesh.shape} (leaves {kinds}) in {loop_s:.1f} s with "
+                    f"{mgr.saves}; loss {[round(m['loss'], 4) for m in hist_p]}, "
+                    f"grad norm {[round(m['grad_norm'], 4) for m in hist_p]}; "
+                    f"equal to the unpartitioned steps' metrics: {metrics_eq}, "
+                    f"final state bit for bit: {state_eq}")
+                if not (metrics_eq and state_eq):
+                    want = dict(tree_leaves_with_path(
+                        {"params": state_u[0][0], "opt": state_u[0][1]}))
+                    diffs = sorted(
+                        ((float((x.float() - want[k].float()).abs().max()), k)
+                         for k, x in tree_leaves_with_path(whole_p)),
+                        reverse=True)[:5]
+                    raise AssertionError(
+                        f"the partitioned steps differ: {hist_p} against "
+                        f"{hist_u}; largest leaf differences {diffs}")
+                del whole_p
+
+                # (b) the elastic restore, both ways
+                t0 = monotonic()
+                step, back, _ = CheckpointManager(ckpt_p).restore(
+                    {"params": state_u[0][0], "opt": state_u[0][1]})
+                restore_p_s = monotonic() - t0
+                back_eq = step == SHARD_STEPS and same(
+                    back, {"params": state_u[0][0], "opt": state_u[0][1]})
+                del back
+                t0 = monotonic()
+                save_pytree(tree_map(_to_numpy, {"params": state_u[0][0],
+                                                 "opt": state_u[0][1]}),
+                            os.path.join(ckpt_u, f"step_{SHARD_STEPS:08d}"),
+                            codec="none")
+                save_u_s = monotonic() - t0
+
+                def resume():
+                    t1 = monotonic()
+                    with sharding_context(rules):
+                        _, got, _ = CheckpointManager(ckpt_u).restore(
+                            state_p, tree_placements(state_p, axes, rules))
+                    took = monotonic() - t1
+                    blocks_eq = all(
+                        torch.equal(x.to_local(), y.to_local()) and
+                        x.placements == y.placements
+                        for x, y in zip(tree_leaves(got), tree_leaves(state_p)))
+                    batch = distribute_tree(
+                        batches[SHARD_STEPS],
+                        input_logical_axes(batches[SHARD_STEPS]),
+                        rules)
+                    with sharding_context(rules):
+                        p, o, m = step_fn(got["params"], got["opt"], batch)
+                    return took, blocks_eq, (p, o, gather_tree(m))
+
+                restore_u_s, blocks_eq, (p_r, o_r, m_r) = counted(
+                    "sharded_resume", resume, set())
+                p_w, o_w, m_w = step_fn(*state_u[0], batches[SHARD_STEPS])
+                next_eq = same(gather_tree({"p": p_r, "o": o_r, "m": m_r}),
+                               {"p": p_w, "o": o_w, "m": m_w})
+                log(f"[sharded] (b) (a)'s checkpoint restored unsharded in "
+                    f"{restore_p_s:.1f} s equals the unpartitioned state: "
+                    f"{back_eq}; an unsharded checkpoint of that state (saved "
+                    f"in {save_u_s:.1f} s, codec none) restored onto (a)'s "
+                    f"placements in {restore_u_s:.1f} s equals (a)'s blocks: "
+                    f"{blocks_eq}; the next step from each equal: {next_eq}")
+                if not (back_eq and blocks_eq and next_eq):
+                    raise AssertionError("an elastic restore differs")
+                del p_r, o_r, m_r, p_w, o_w, m_w
+
+                # timing, each side, from the restored states
+                with sharding_context(rules):
+                    part = _step_times(step_fn, [(p_p, o_p)], distribute_tree(
+                        batches[-1], input_logical_axes(batches[-1]), rules),
+                        log, "partitioned (1, 1)")
+                whole = _step_times(step_fn, state_u, batches[-1], log,
+                                    "unpartitioned")
+                del p_p, o_p, state_p, mgr
+            finally:
+                dist.destroy_process_group()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            state_u.clear()
+            for path in (ckpt_p, ckpt_u, store):
+                shutil.rmtree(path, ignore_errors=True)
+        log(f"[sharded] DTensor's dispatch: {part['step_ms'] - whole['step_ms']:.1f}"
+            f" ms a step of wall, {part['host_ms'] - whole['host_ms']:.1f} ms of "
+            f"host enqueue time ({part['launches_a_step']:.0f} against "
+            f"{whole['launches_a_step']:.0f} launches)  [{smi}]")
+        out["train"] = dict(steps=SHARD_STEPS, loop_s=loop_s, losses=[
+            m["loss"] for m in hist_p], grad_norms=[m["grad_norm"] for m in
+                                                    hist_p],
+            metrics_equal=metrics_eq, state_equal=state_eq,
+            restore_sharded_to_whole_s=restore_p_s, save_whole_s=save_u_s,
+            restore_whole_to_mesh_s=restore_u_s, restores_equal=back_eq and
+            blocks_eq and next_eq, partitioned=part, unpartitioned=whole,
+            left_gib=left)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) and (d): their processes' results
+        finished = {}
+        for name, log_path, fh, proc in procs:
+            rc = proc.wait()
+            fh.flush()
+            with open(log_path) as f:
+                text = f.read()
+            finished[name] = text
+            if rc != 0:
+                raise AssertionError(f"phase 13 {name}: rc {rc}\n"
+                                     f"{text[-5000:]}")
+        cells = {}
+        for arch, shape, meshes in DRYRUN_CELLS:
+            for mk in (("pod", "multipod") if meshes == "both" else (meshes,)):
+                safe = arch.replace("/", "_").replace(".", "_")
+                with open(os.path.join(ROOT, "build", "dryrun",
+                                       f"{safe}__{shape}__{mk}__phase13.json")) \
+                        as f:
+                    art = json.load(f)
+                t, c, mem = art["roofline_terms"], art["collectives"], \
+                    art["memory"]
+                log(f"[sharded] (c) {arch} x {shape} x {mk} ({art['chips']} "
+                    f"ranks, torch {art['torch']}, traced in "
+                    f"{art['trace_s']} s after "
+                    f"{art['meta_s']} s on meta): collective bytes a device "
+                    f"{c['bytes']}, "
+                    f"counts {c['counts']}; collective {t['collective_s']*1e3:.2f}"
+                    f" ms (wire {t['collective_wire_s']*1e3:.2f}) against compute "
+                    f"{t['compute_s']*1e3:.2f} ms and memory "
+                    f"{t['memory_s']*1e3:.2f} ms: {art['dominant']}; arguments "
+                    f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, temporary "
+                    f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB a device")
+                cells[f"{arch}|{shape}|{mk}"] = dict(
+                    chips=art["chips"], torch=art["torch"],
+                    trace_s=art["trace_s"],
+                    collectives=c, roofline_terms=t, dominant=art["dominant"],
+                    memory=mem, cost=art["cost"])
+        out["dryrun"] = cells
+
+        text = finished["card_tests"]
+        tail = text.strip().splitlines()[-1] if text.strip() else ""
+        log(f"[sharded] (d) pytest -m cuda tests/test_torch_sharded_card.py: "
+            f"{tail!r}")
+        if " passed" not in tail or "skipped" in tail:
+            raise AssertionError(f"card sharded tests failed:\n{text[-5000:]}")
+        out["card_tests"] = tail
+        out["phase_s"] = monotonic() - t_phase
+        log(f"[sharded] phase 13 in {out['phase_s']:.1f} s")
+        return out
+    finally:
+        for _, _, fh, proc in procs:  # stop what a failure left running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
 
 
 def main() -> int:
@@ -2532,6 +2861,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(counted, by_path, log, smi)
     log(json.dumps({"train": train}))
+
+    # -------------------------------------------------------- 13. sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(counted, by_path, log, smi)
+    log(f"[sharded] a step on the (1, 1) mesh "
+        f"{sharded['train']['partitioned']['step_ms']:.1f} ms against phase "
+        f"12's {train['qwen']['step_ms']:.1f} ms (idle share "
+        f"{sharded['train']['partitioned']['idle_share']:.4f} against "
+        f"{train['qwen']['idle_share']:.4f})")
+    log(json.dumps({"sharded": sharded}))
 
     kernels = []
     for name, rec in record.items():

@@ -15,7 +15,13 @@ Fault-tolerance properties:
 - a crash mid-write leaves only a .tmp dir (ignored on restore);
 - ``latest_step`` picks the newest *committed* checkpoint;
 - restore casts onto a caller's template tree (numpy arrays or tensors,
-  each leaf restored with the template leaf's dtype and device);
+  each leaf restored with the template leaf's dtype and device), and with
+  a ``shardings`` tree places each leaf as a DTensor on any mesh: the
+  elastic restore (a checkpoint holds whole tensors, so a run saved on
+  one mesh resumes on another);
+- a DTensor leaf is saved whole (gathered from its shards), so the files
+  are byte for byte what an unsharded save writes, and in a process group
+  only rank 0 writes;
 - async=True saves on a background thread (training continues), with
   ``wait()`` joining before the next save — checkpoint/compute overlap.
 """
@@ -37,7 +43,10 @@ import zlib
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.api import place
 from repro_torch.utils.timing import monotonic
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
@@ -124,7 +133,10 @@ def _decompress(blob: bytes, codec: str) -> bytes:
 
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as a host array; a bfloat16 tensor as its float32 values
-    (numpy has no bfloat16; a template restores the type)."""
+    (numpy has no bfloat16; a template restores the type).  A DTensor is
+    gathered whole first (every rank of its mesh takes part)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -161,10 +173,15 @@ def save_pytree(tree, path: pathlib.Path, extra_meta: dict = None,
     tmp.rename(path)  # atomic commit
 
 
-def load_pytree(path: pathlib.Path, template=None, verify: bool = True):
+def load_pytree(path: pathlib.Path, template=None, shardings=None,
+                verify: bool = True):
     """Restore ``(tree, extra)``.  Without a template the tree is a flat
     ``{key: array}`` dict; with one, every leaf takes the template leaf's
-    dtype (and device, for a tensor)."""
+    dtype (and device, for a tensor).  ``shardings`` (with a template)
+    mirrors the template down to its leaves, each ``(DeviceMesh,
+    placements)`` or None: a leaf with a mesh comes back as a DTensor
+    with those placements, each rank keeping its own block (the elastic
+    restore); None, or no ``shardings``, gives a whole tensor."""
     path = pathlib.Path(path)
     manifest = json.loads((path / "MANIFEST.json").read_text())
     codec = manifest.get("codec", "zstd")  # pre-codec checkpoints were zstd
@@ -185,13 +202,16 @@ def load_pytree(path: pathlib.Path, template=None, verify: bool = True):
         return by_key, manifest["extra"]
     keys = iter(k for k, _ in tree_leaves_with_path(template))
 
-    def restore(tmpl):
+    def restore(tmpl, sh=None):
         arr = by_key[next(keys)]
-        if isinstance(tmpl, torch.Tensor):
-            return torch.from_numpy(arr.copy()).to(tmpl.device, tmpl.dtype)
-        return arr.astype(np.asarray(tmpl).dtype)
+        if not isinstance(tmpl, torch.Tensor):
+            return arr.astype(np.asarray(tmpl).dtype)
+        t = torch.from_numpy(arr.copy()).to(tmpl.device, tmpl.dtype)
+        return t if sh is None else place(t, *sh)
 
-    return tree_map(restore, template), manifest["extra"]
+    if shardings is None:
+        return tree_map(restore, template), manifest["extra"]
+    return tree_map(restore, template, shardings), manifest["extra"]
 
 
 class CheckpointManager:
@@ -230,6 +250,8 @@ class CheckpointManager:
         t0 = monotonic()
         host_tree = tree_map(_to_numpy, tree)  # snapshot
         snapshot_s = monotonic() - t0
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # every rank gathers; rank 0 writes
 
         def work():
             t1 = monotonic()
@@ -248,11 +270,14 @@ class CheckpointManager:
         else:
             work()
 
-    def restore(self, template=None, step: int = None):
+    def restore(self, template=None, shardings=None, step: int = None):
+        """(step, tree, extra) of checkpoint ``step`` (the newest by
+        default), or (None, None, None) without one; ``template`` and
+        ``shardings`` as ``load_pytree``'s."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None, None
-        tree, extra = load_pytree(self.step_path(step), template)
+        tree, extra = load_pytree(self.step_path(step), template, shardings)
         return step, tree, extra
 
     def _gc(self):

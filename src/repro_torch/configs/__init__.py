@@ -8,7 +8,8 @@ a reduced same-family config that runs a real forward on the CPU.
 from __future__ import annotations
 
 from repro_torch.configs.registry import (ARCHS, LONG_CONTEXT_OK, get_config,
-                                          input_specs, list_archs,
+                                          input_logical_axes, input_specs,
+                                          list_archs,
                                           long_context_skip_reason,
                                           smoke_config)
 from repro_torch.models.config import (LayerSpec, ModelConfig, ShapeCell,

@@ -75,6 +75,22 @@ def long_context_skip_reason(name: str):
 # ---------------------------------------------------------------------------
 
 
+def input_logical_axes(batch: dict) -> dict:
+    """Logical axes of a step's inputs, as the reference's dry run places
+    them: tokens and targets on "batch", the modality stubs on "batch",
+    decode positions on "kv_batch"; a decode cache is placed by
+    ``lm.cache_logical_axes`` and has no entry here."""
+    def one(name, leaf):
+        if name in ("tokens", "targets"):
+            return ("batch",) + (None,) * (leaf.ndim - 1)
+        if name in ("prefix_embeds", "enc_frames"):
+            return ("batch", None, None)
+        if name == "pos":
+            return ("kv_batch",)
+        return (None,) * leaf.ndim
+    return {k: one(k, v) for k, v in batch.items() if k != "cache"}
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeCell) -> dict:
     """Meta inputs for the step function selected by shape.kind.
 

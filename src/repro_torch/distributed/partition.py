@@ -1,0 +1,386 @@
+"""Partition rules: how each operation that DTensor cannot propagate runs
+on a mesh.
+
+DTensor propagates most operations by its own sharding rules.  A few it
+cannot: ``mm`` with ``out_dtype``, sorts and scatters within a
+sequence, the Mamba recurrence, einsums over placements it has no
+strategy for; and some it can only plan so slowly that a production
+cell would take minutes a shape (attention and the expert products
+once the batch is split over two mesh axes).  Each such operation is
+written once, as the plain function on plain tensors, and marked with
+``@by_rule(rule)``: on plain arguments it runs as written, so one card
+runs exactly what it ran before; where an argument is a DTensor,
+``rule(fn, *args, **kwargs)`` runs it instead.  Every rule is here,
+beside the others, and each runs ``fn`` (or its partitioned form, for
+attention over a slot-split cache and the vocab-parallel log-prob) on
+each rank's local shards with stated placements (``local_region``),
+the layout GSPMD gives the reference's same operation.
+
+Rules and why each exists ("cannot": no DTensor strategy; "slow":
+DTensor's planner takes minutes a shape on the 3-D production mesh):
+
+- ``sdpa``: attention on each rank's sequences and KV heads (slow);
+  without gradients a slot-split cache stays split (flash-decoding
+  across ranks, ``_sdpa_split_keys``).
+- ``write_slots``: a decode step's cache write, into each rank's own
+  block of sequences and slots (cannot: an indexed write into a
+  sharded dim).
+- ``per_sequence``: MoE routing, dispatch and combine on each rank's
+  own sequences (cannot: stable sort, cumulative ranks, scatter and
+  gather).
+- ``experts``: the expert products on local blocks (cannot: the
+  einsum's placements).
+- ``recurrence``: the Mamba scan on each rank's (batch, inner, state)
+  block (cannot: an autograd function).
+- ``embed``: the vocab-sharded table lookup as a Partial sum (cannot
+  without gathering the table).
+- ``matmul_f32``: the logits product into float32 (cannot:
+  ``aten.mm.dtype`` has no strategy).
+- ``logprob``: the target's log-probability, vocab-parallel where the
+  vocabulary is split (slow, and it would gather the logits whole).
+- ``topk_threshold``: the global top-k threshold of a gradient leaf on
+  the gathered leaf (cannot: ``topk`` over a leaf split on two axes).
+- ``sum_scalars``: the global grad norm's sum, reduced once a mesh dim
+  (DTensor would reduce each leaf's Partial on its own).
+"""
+from __future__ import annotations
+
+import functools
+from functools import partial
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.distributed.api import local_region, place
+
+
+def by_rule(rule):
+    """Decorator: the function as written on plain tensors; where an
+    argument (or a tensor in a list argument) is a DTensor,
+    ``rule(fn, *args, **kwargs)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if any(isinstance(t, DTensor) for t in tree_flatten(args)[0]):
+                return rule(fn, *args, **kwargs)
+            return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def local_block(x, dim: int, placements=None) -> tuple:
+    """(first index, length) along ``dim`` of this rank's block of DTensor
+    ``x`` under ``placements`` (x's own by default): DTensor splits the
+    mesh dims in order, the first one major."""
+    mesh = x.device_mesh
+    lo, n = 0, x.shape[dim]
+    for i, p in enumerate(placements or x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * n
+    return lo, n
+
+
+def keep_shards(x, dims) -> tuple:
+    """x's placements with a ``Shard`` of a tensor dim in ``dims`` kept
+    and every other placement (a ``Partial`` included) made
+    ``Replicate``: the placements under which an operation independent
+    along ``dims`` runs on local shards."""
+    return tuple(p if isinstance(p, Shard) and p.dim in dims else Replicate()
+                 for p in x.placements)
+
+
+def partial_where_sharded(placements) -> tuple:
+    """``Partial`` on each mesh dim that ``placements`` shard, and
+    ``Replicate`` elsewhere: the placements of a sum over the sharded
+    dims that each rank takes over its own block."""
+    return tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in placements)
+
+
+# ------------------------------------------------------------ attention
+
+def sdpa(fn, q, k, v, mask, scale):
+    """Attention (``fn``: q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask
+    broadcastable (B,1,1,Sq,Sk)) on each rank's own sequences and KV
+    heads (attention never mixes either), laid out as k and v are, the
+    larger operands (a decode step's cache): q takes their shards of
+    those dims and everything else is gathered, the mask takes the rows'
+    split where it has one row a sequence.  Without gradients (serving),
+    a cache split along its slots stays split: ``_sdpa_split_keys``."""
+    mesh = k.device_mesh
+    pk = keep_shards(k, (0, 1, 2))
+    split = [i for i, p in enumerate(pk) if p == Shard(1) and mesh.size(i) > 1]
+    if split and torch.is_grad_enabled():
+        split = []
+    if not split:
+        pk = tuple(Replicate() if p == Shard(1) else p for p in pk)
+    pq = tuple(Replicate() if p == Shard(1) else p for p in pk)
+    fn = partial(fn, scale=scale)
+    if split:
+        lo, n = local_block(k, 1, pk)
+        fn = partial(_sdpa_split_keys, scale=scale, lo=lo, n=n,
+                     groups=[(mesh, i) for i in split])
+    if mask is None:
+        return local_region(partial(fn, mask=None), pq, (pq, pk, pk),
+                            mesh)(q, k, v)
+    pm = None  # a plain mask broadcasts over the rows
+    if isinstance(mask, DTensor):
+        pm = tuple(p if p == Shard(0) and mask.shape[0] > 1 else Replicate()
+                   for p in pq)
+    return local_region(fn, pq, (pq, pk, pk, pm), mesh)(q, k, v, mask)
+
+
+def _sdpa_split_keys(q, k, v, mask, scale, lo, n, groups):
+    """Plain attention over keys ``lo .. lo + n`` of the whole (this
+    rank's block of a cache split along its slots; ``mask`` covers every
+    slot): the scores' max and the exponentials' sum are reduced over
+    the ``groups`` that split the slots, so each rank holds its keys'
+    share of the softmax, cast to the values' type as the plain path
+    casts it; the weighted values are then summed over the groups in
+    float32, flash-decoding across ranks.  Forward only."""
+    from torch.distributed._functional_collectives import all_reduce
+    scores = torch.einsum("bqcgh,bkch->bcgqk", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask[..., lo:lo + n], -1e30)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    for g in groups:
+        m = all_reduce(m, "max", g)
+    p = torch.exp(scores - m)
+    total = torch.sum(p, dim=-1, keepdim=True)
+    for g in groups:
+        total = all_reduce(total, "sum", g)
+    out = torch.einsum("bcgqk,bkch->bqcgh", (p / total).to(v.dtype),
+                       v).float()
+    for g in groups:
+        out = all_reduce(out, "sum", g)
+    return out.to(v.dtype)
+
+
+def write_slots(fn, cache, slot, new):
+    """``cache[b, slot[b]] = new[b]`` in place on a DTensor cache: each
+    rank writes the rows of its own block of sequences and slots
+    (GSPMD's partitioned scatter); ``new`` and ``slot`` are placed as the
+    cache's rows and heads, and a slot outside the rank's block rewrites
+    the value already there."""
+    mesh, pc = cache.device_mesh, cache.placements
+    pn = tuple(Shard(q.dim - 1) if isinstance(q, Shard) and q.dim >= 2 else
+               q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+               for q in pc)
+    ps = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+               for q in pc)
+    new_l = new.redistribute(mesh, pn).to_local().to(cache.dtype)
+    slot_l = slot.redistribute(mesh, ps).to_local()
+    lo, n = local_block(cache, 1)
+    c = cache.to_local()
+    owned = (slot_l >= lo) & (slot_l < lo + n)
+    idx = torch.where(owned, slot_l - lo, 0)
+    bidx = torch.arange(c.shape[0], device=c.device)
+    c[bidx, idx] = torch.where(owned[:, None, None], new_l, c[bidx, idx])
+
+
+# ------------------------------------------------------------ MoE, Mamba
+
+def per_sequence(*out_placements):
+    """A rule that runs ``fn`` over each rank's own sequences: the batch
+    dim of the first argument keeps its shards and every other dim is
+    gathered, and every DTensor argument takes the same placements, so
+    their local rows are the same sequences.  ``out_placements`` maps
+    the batch placements to each output's (None, or none given: the
+    batch's)."""
+    def rule(fn, *args, **kwargs):
+        pl = keep_shards(args[0], (0,))
+        ins = tuple(pl if isinstance(a, DTensor) else None for a in args)
+        outs = tuple(pl if o is None else o(pl) for o in out_placements)
+        return local_region(partial(fn, **kwargs),
+                            outs if len(outs) > 1 else outs[0] if outs
+                            else pl, ins, args[0].device_mesh)(*args)
+    return rule
+
+
+def experts(fn, buf, w_gate, w_up, w_down):
+    """The expert products ``fn`` on local blocks, laid out as the
+    reference's constraints pin them: on each mesh dim that splits the
+    buffer's batch the weights are gathered (their FSDP "embed" shard)
+    and their gradients are Partial sums; on one that splits its experts
+    the weights are split alike; on one that splits neither, the weights
+    keep a split of the expert FFN dim, and the output (and the buffer's
+    gradient) is a Partial sum."""
+    pb = keep_shards(buf, (0, 1))
+    rows = [p == Shard(0) for p in pb]
+    by_expert = [p == Shard(1) for p in pb]
+    ffn = [not (r or e) and p == Shard(2)
+           for r, e, p in zip(rows, by_expert, w_gate.placements)]
+
+    def weight(ffn_dim):
+        return tuple(Shard(0) if e else Shard(ffn_dim) if f else Replicate()
+                     for e, f in zip(by_expert, ffn))
+
+    def weight_grad(ffn_dim):
+        return tuple(Partial() if r else w
+                     for r, w in zip(rows, weight(ffn_dim)))
+
+    out = tuple(Partial() if f else p for f, p in zip(ffn, pb))
+    return local_region(
+        fn, out, (pb, weight(2), weight(2), weight(1)),
+        buf.device_mesh, (out, weight_grad(2), weight_grad(2),
+                          weight_grad(1)),
+    )(buf, w_gate, w_up, w_down)
+
+
+def recurrence(fn, h0, a, b):
+    """The scan ``fn`` on each rank's own block of (batch, inner, state),
+    which the recurrence along the chunk never crosses (a shard of the
+    chunk's positions, or a Partial, is gathered first)."""
+    pl = keep_shards(b, (0, 2, 3))
+    ph = tuple(Shard(q.dim - 1) if isinstance(q, Shard) and q.dim else q
+               for q in pl)
+    if not isinstance(h0, DTensor):
+        h0 = place(h0, b.device_mesh, ph)
+    # ``b`` is written over in place: the local region takes a copy, as
+    # a view that DTensor hands out cannot be marked dirty
+    return local_region(lambda h, a_, b_: fn(h, a_, b_.clone()),
+                        pl, (ph, pl, pl), b.device_mesh)(h0, a, b)
+
+
+# ------------------------------------------------------- embedding, logits
+
+def _lookup(table, tokens, lo: int):
+    """Rows ``tokens - lo`` of a block of the table that starts at row
+    ``lo``; a token outside the block reads zeros."""
+    out_of_block = (tokens < lo) | (tokens >= lo + table.shape[0])
+    rows = table[torch.where(out_of_block, 0, tokens - lo)]
+    return torch.where(out_of_block[..., None], torch.zeros_like(rows), rows)
+
+
+def embed(fn, table, tokens):
+    """``table[tokens]`` as GSPMD partitions a gather from a vocab-sharded
+    table: each rank reads its own block of the vocabulary for its own
+    rows of tokens (zeros for tokens outside the block), and the result
+    is a Partial sum over the mesh dims that split the vocabulary; the
+    table's other splits are gathered."""
+    pk = keep_shards(tokens, tuple(range(tokens.ndim)))
+    pt = tuple(Replicate() if isinstance(a, Shard) else b
+               for a, b in zip(pk, keep_shards(table, (0,))))
+    lo, _ = local_block(table, 0, pt)
+    out = tuple(Partial() if isinstance(b, Shard) else a
+                for a, b in zip(pk, pt))
+    grad = tuple(Partial() if isinstance(a, Shard) else b
+                 for a, b in zip(pk, pt))
+    return local_region(partial(_lookup, lo=lo), out, (pt, pk),
+                        table.device_mesh, (grad, pk))(table, tokens)
+
+
+def matmul_f32(fn, h2, table):
+    """``fn`` (h2 @ table.T into float32) on local blocks with the
+    placements GSPMD gives vocab-sharded logits: the rows keep their
+    batch shards, the table its vocab shards on the mesh dims the rows
+    do not use, and whatever else either is split over (the table's FSDP
+    "embed" shard, a Partial) is gathered.  The logits are then sharded
+    as the rows on dim 0 and as the table on dim 1; each operand's
+    gradient is a Partial sum on the mesh dims that split the other."""
+    ph = keep_shards(h2, (0,))
+    pt = tuple(Replicate() if isinstance(a, Shard) else b
+               for a, b in zip(ph, keep_shards(table, (0,))))
+    out = tuple(Shard(0) if isinstance(a, Shard) else
+                Shard(1) if isinstance(b, Shard) else Replicate()
+                for a, b in zip(ph, pt))
+    grads = (tuple(Partial() if isinstance(b, Shard) else a
+                   for a, b in zip(ph, pt)),
+             tuple(Partial() if isinstance(a, Shard) else b
+                   for a, b in zip(ph, pt)))
+    return local_region(fn, out, (ph, pt), h2.device_mesh, grads)(h2, table)
+
+
+def logprob(fn, logits, t):
+    """Each position's log-probability of its target (``fn``) on each
+    rank's rows, and where the vocabulary is split, vocab-parallel
+    (``_VocabParallelLogprob``), so neither the logits nor their
+    gradient is ever gathered whole."""
+    pl = keep_shards(logits, (0, 2))
+    prow = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(pl)
+             if p == Shard(2) and mesh.size(i) > 1]
+    if not vocab:
+        return local_region(fn, prow, (pl, prow), mesh)(logits, t)
+    lo, _ = local_block(logits, 2, pl)
+    groups = [(mesh, i) for i in vocab]
+    run = lambda x, y: _VocabParallelLogprob.apply(x, y, lo, groups)  # noqa
+    return local_region(run, prow, (pl, prow), mesh)(logits, t)
+
+
+class _VocabParallelLogprob(torch.autograd.Function):
+    """log_softmax(x)[..., t] of local logits (..., V_local), a block of
+    the vocabulary that starts at ``lo``, with the all-reduces over the
+    mesh dims that split the vocabulary (Megatron's vocab-parallel cross
+    entropy): the max, the sum of exponentials and the target's logit.
+    The gradient, (one-hot of the target - softmax) times the incoming
+    one, is computed on the block, with no communication."""
+
+    @staticmethod
+    def forward(ctx, x, t, lo, groups):
+        from torch.distributed._functional_collectives import all_reduce
+        m = torch.amax(x, dim=-1, keepdim=True)
+        for g in groups:
+            m = all_reduce(m, "max", g)
+        z = x - m
+        e = torch.exp(z)
+        se = torch.sum(e, dim=-1, keepdim=True)
+        for g in groups:
+            se = all_reduce(se, "sum", g)
+        inb = (t >= lo) & (t < lo + x.shape[-1])
+        idx = torch.where(inb, t - lo, 0)[..., None]
+        tz = torch.where(inb, torch.gather(z, -1, idx)[..., 0], 0.0)
+        for g in groups:
+            tz = all_reduce(tz, "sum", g)
+        ctx.save_for_backward(e, se, idx, inb)
+        return tz - torch.log(se[..., 0])
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, inb = ctx.saved_tensors
+        grad = -(e / se) * g[..., None]
+        grad.scatter_add_(-1, idx, torch.where(inb, g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+# ------------------------------------------------------------ training
+
+def topk_threshold(fn, g, *args):
+    """``fn``'s threshold of the whole leaf: a global top-k, as GSPMD
+    computes it, on the gathered leaf; replicated on its mesh."""
+    mesh = g.device_mesh
+    return DTensor.from_local(fn(g.full_tensor(), *args), mesh,
+                              [Replicate()] * mesh.ndim)
+
+
+def _reduced_once(fn, scalars):
+    """``fn`` (a sum) of scalars, some of them DTensors: each rank adds up
+    its own share of each (a Partial's local value; a replicated one's
+    on the first rank of each mesh dim that replicates it, 0 on the
+    others), in the same order, and the total is reduced once: one
+    all-reduce of a scalar for each mesh dim."""
+    mesh = next(s for s in scalars if isinstance(s, DTensor)).device_mesh
+    total = DTensor.from_local(
+        fn([_own_share(s, mesh) for s in scalars]), mesh,
+        [Partial()] * mesh.ndim)
+    return total.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+@by_rule(_reduced_once)
+def sum_scalars(scalars):
+    """The sum of a list of scalars, in order (the grad norm's)."""
+    return torch.sum(torch.stack(scalars))
+
+
+def _own_share(s, mesh) -> torch.Tensor:
+    """This rank's addend of scalar ``s`` in a sum over every rank."""
+    if not isinstance(s, DTensor):
+        s = DTensor.from_local(s, mesh, [Replicate()] * mesh.ndim)
+    local = s.to_local()
+    for i, p in enumerate(s.placements):
+        if not isinstance(p, Partial) and mesh.get_local_rank(i) != 0:
+            local = torch.zeros_like(local)
+    return local

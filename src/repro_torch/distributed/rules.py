@@ -11,16 +11,19 @@ a recorded warning* instead of failing — e.g. whisper-base's 8 heads
 cannot be sharded over a 16-way "model" axis and fall back to
 replication.
 
-A mesh is anything with a ``shape`` mapping axis names to sizes
-(``repro_torch.launch.mesh.Mesh``, or a plain dict); a spec is the
-reference's partition tuple: per dim a mesh axis, a tuple of axes, or
-None.
+A mesh is anything with a ``shape`` mapping axis names to sizes, in
+mesh order (``repro_torch.launch.mesh.Mesh``, or a plain dict); a spec
+is the reference's partition tuple: per dim a mesh axis, a tuple of
+axes, or None.  ``placements`` turns a spec into DTensor placements, one
+per mesh dim, the form a ``DeviceMesh`` takes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from torch.distributed.tensor import Replicate, Shard
 
 # logical name -> ordered candidate mesh-axis tuples.  Each candidate is a
 # tuple of mesh axes (sharding one dim over multiple mesh axes is allowed,
@@ -89,6 +92,27 @@ class MeshRules:
 
     # activations may carry fewer constraints; identical mechanics
     activation_spec = spec
+
+    def placements(self, spec: tuple) -> tuple:
+        """One DTensor placement per mesh dim: ``Shard(d)`` where tensor
+        dim d is split over that mesh axis, ``Replicate()`` elsewhere.  A
+        dim split over several axes (("pod", "data"), say) is sharded on
+        each; the first named is the major one, as in the reference's
+        ``PartitionSpec``, which is DTensor's order when the axes come in
+        mesh order (the rules' candidates all do)."""
+        names = list(_mesh_shape(self.mesh))
+        out = [Replicate()] * len(names)
+        for d, part in enumerate(spec):
+            if part is None:
+                continue
+            idx = [names.index(a)
+                   for a in (part if isinstance(part, tuple) else (part,))]
+            if idx != sorted(idx):
+                raise ValueError(f"spec {spec}: axes of dim {d} are not in "
+                                 f"mesh order {names}")
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
 
     def shard_shape(self, spec: tuple, shape: Sequence[int]) -> tuple:
         """One device's block of a tensor of ``shape`` under ``spec``."""

@@ -158,6 +158,18 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             "torch.no_grad()")
 
 
+def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
+    """Raise on a DTensor input: a kernel computes one whole tensor, and
+    a partitioned program must not reach it through ``to_local()``, which
+    would run it on one rank's shard as if it were the whole (the
+    reference's Pallas calls are not partitioned either)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{name} takes whole tensors, not DTensors; a partitioned "
+            'program runs attention through attn_impl="auto" or "plain"')
+
+
 def require_cuda(name: str, *tensors: torch.Tensor,
                  contiguous: bool = True) -> None:
     """A kernel takes CUDA tensors on one device, contiguous unless the

@@ -22,6 +22,7 @@ def decode_attention_cuda(q, k, v, lengths):
     16 bytes; q is made contiguous.
     """
     name = "decode_attention_cuda"
+    build.refuse_dtensor(name, q, k, v, lengths)
     build.require_cuda(name, q, k, v, lengths, contiguous=False)
     build.refuse_grad(name, q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:

@@ -25,6 +25,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     -1)`` costs no copy.
     """
     name = "flash_attention_cuda"
+    build.refuse_dtensor(name, q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -28,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed import partition
+from repro_torch.distributed.api import merge_heads, shard_act, split_dim
+from repro_torch.distributed.partition import by_rule
 from repro_torch.models.config import ModelConfig
 
 # --------------------------------------------------------------------------
@@ -100,13 +102,15 @@ def _project_qkv(cfg, p, x, kv_x=None):
     v = kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, KV, H // KV, hd),
-            k.reshape(B, Skv, KV, hd),
-            v.reshape(B, Skv, KV, hd))
+    return (split_dim(q, -1, (KV, H // KV, hd)),
+            split_dim(k, -1, (KV, hd)),
+            split_dim(v, -1, (KV, hd)))
 
 
+@by_rule(partition.sdpa)
 def _sdpa(q, k, v, mask, scale):
-    """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask broadcastable (B,1,1,Sq,Sk)."""
+    """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask broadcastable (B,1,1,Sq,Sk).
+    """
     scores = torch.einsum("bqcgh,bkch->bcgqk", q.float(), k.float())
     scores = scores * scale
     if mask is not None:
@@ -137,14 +141,14 @@ def attention_plain(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         positions = _positions(S, x.device)
     if rope and cfg.pos_type == "rope" and kv_x is None:
         q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).reshape(q.shape)
+                       cfg.rope_theta).unflatten(2, q.shape[2:4])
         k = apply_rope(k, positions, cfg.rope_theta)
     mask = None
     if causal:
         kpos = torch.arange(k.shape[1], device=x.device)[None, :]
         mask = _causal_window_mask(positions, kpos, window)[:, None, None]
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
-    out = out.reshape(B, S, -1)
+    out = merge_heads(out)
     return out @ p["wo"]
 
 
@@ -181,7 +185,7 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         positions = _positions(S, dev)
     if cfg.pos_type == "rope":
         q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).reshape(q.shape)
+                       cfg.rope_theta).unflatten(2, q.shape[2:4])
         k = apply_rope(k, positions, cfg.rope_theta)
 
     def block(qi_pos, kj, q_blk, m, l, acc):
@@ -220,7 +224,7 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         def kv_chunks(qi):
             return range(nk)
 
-    out = torch.empty((B, S, KV, G, hd), dtype=dt, device=dev)
+    outs = []
     for qi in range(nq):
         rows = slice(qi * cq, (qi + 1) * cq)
         q_blk = q[:, rows]
@@ -237,8 +241,8 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         for kj in kv_chunks(qi):
             m, l, acc = block(qi_pos, kj, q_blk, m, l, acc)
         o = acc / torch.clamp(l[..., None], min=1e-30)    # (B,KV,G,cq,hd)
-        out[:, rows] = o.permute(0, 3, 1, 2, 4).to(dt)
-    return out.reshape(B, S, -1) @ p["wo"]
+        outs.append(o.permute(0, 3, 1, 2, 4).to(dt))
+    return merge_heads(torch.cat(outs, dim=1)) @ p["wo"]
 
 
 def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
@@ -265,7 +269,7 @@ def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
         positions = _positions(S, x.device)
     if cfg.pos_type == "rope":
         q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).reshape(q.shape)
+                       cfg.rope_theta).unflatten(2, q.shape[2:4])
         k = apply_rope(k, positions, cfg.rope_theta)
     # (B,H,S,hd) and (B,KV,S,hd) views of the (B,S,heads,hd) projections:
     # the kernel takes their strides, and its output lies as (B,S,H,hd),
@@ -309,6 +313,13 @@ def attention_apply(cfg: ModelConfig, p, x, *, causal=True, window=None,
 # --------------------------------------------------------------------------
 
 
+@by_rule(partition.write_slots)
+def _write_slots(cache, slot, new):
+    """``cache[b, slot[b]] = new[b]`` for every row b, in place."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    cache[bidx, slot] = new.to(cache.dtype)
+
+
 def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
                      cross_kv=None):
     """One-token decode against a KV cache.
@@ -330,14 +341,14 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
         q = x1 @ p["wq"]
         if "bq" in p:
             q = q + p["bq"]
-        q = q.reshape(B, 1, cfg.n_kv_heads, -1, hd)
+        q = split_dim(q, -1, (cfg.n_kv_heads, -1, hd))
         out = _sdpa(q, cross_kv["k"], cross_kv["v"], None,
                     1.0 / math.sqrt(hd))
-        return out.reshape(B, 1, -1) @ p["wo"], cache
+        return merge_heads(out) @ p["wo"], cache
     q, k_new, v_new = _project_qkv(cfg, p, x1)
     if cfg.pos_type == "rope":
         q = apply_rope(q.reshape(B, 1, -1, hd), pos[:, None],
-                       cfg.rope_theta).reshape(q.shape)
+                       cfg.rope_theta).unflatten(2, q.shape[2:4])
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -345,9 +356,8 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
     # a global layer's slot is clamped to L - 1: past L new tokens the
     # reference overwrites its last slot, and so does the port (parity)
     slot = pos % L if window is not None else torch.clamp(pos, max=L - 1)
-    bidx = torch.arange(B, device=x1.device)
-    k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+    _write_slots(k_cache, slot, k_new[:, 0])
+    _write_slots(v_cache, slot, v_new[:, 0])
 
     if cfg.attn_impl in ("flash", "flash-ref") and window is None:
         # flash-decoding kernel: global layers keep a contiguous prefix
@@ -372,7 +382,7 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
         valid = delta < torch.clamp(pos[:, None] + 1, max=window)
     out = _sdpa(q, k_cache, v_cache, valid[:, None, None, None, :],
                 1.0 / math.sqrt(hd))
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    return merge_heads(out) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------
@@ -399,6 +409,74 @@ def _round_up(x, m):
     return (x + m - 1) // m * m
 
 
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots an expert takes of a group of T tokens."""
+    K, E = cfg.top_k, cfg.n_experts
+    return min(_round_up(max(1, int(K * T / E * cfg.capacity_factor)), 8), T)
+
+
+@by_rule(partition.per_sequence(None, None, None, None))
+def _route_from_probs(probs, K: int, C: int):
+    """probs (B, T, E) -> topv, topi (B, T, K), keep, dst (B, T*K): the
+    router's choices, ranked within each sequence (see ``moe_route``)."""
+    B, T, E = probs.shape
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :K], topi[..., :K]
+    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+    flat_e = topi.reshape(B, T * K)
+    onehot = F.one_hot(flat_e, E)                      # (B, T*K, E)
+    ranks = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                         flat_e[..., None])[..., 0] - 1
+    keep = ranks < C
+    dst = torch.where(keep, flat_e * C + ranks, torch.full_like(ranks, E * C))
+    return topv, topi, keep, dst
+
+
+@by_rule(partition.per_sequence())
+def _dispatch(x, dst, E: int, C: int, K: int):
+    """x (B, T, D) -> each sequence's (E, C, D) expert buffer: slot k of
+    token t goes to row ``dst[b, t*K + k]``; rows at the sentinel E*C are
+    thrown away."""
+    B, T, D = x.shape
+    x_rep = torch.repeat_interleave(x, K, dim=1)       # (B, T*K, D)
+    buf = x.new_zeros((B, E * C + 1, D))
+    bidx = torch.arange(B, device=x.device)[:, None]
+    buf[bidx, dst] = x_rep
+    return buf[:, :E * C].reshape(B, E, C, D)
+
+
+@by_rule(partition.per_sequence())
+def _combine(out_buf, dst, topv):
+    """Each token's K expert outputs read back from ``out_buf`` (B, E, C,
+    D) at ``dst`` (a dropped slot reads zeros) and summed with the
+    renormalised router weights -> (B, T, D)."""
+    B, E, C, D = out_buf.shape
+    T, K = topv.shape[1], topv.shape[2]
+    out_flat = torch.cat([out_buf.reshape(B, E * C, D),
+                          out_buf.new_zeros((B, 1, D))], dim=1)
+    bidx = torch.arange(B, device=out_buf.device)[:, None]
+    gathered = out_flat[bidx, dst]                     # (B, T*K, D)
+    return torch.sum(gathered.reshape(B, T, K, D)
+                     * topv[..., None].to(out_buf.dtype), dim=2)
+
+
+@by_rule(partition.per_sequence(partition.partial_where_sharded))
+def _first_choice_counts(topi, E: int):
+    """Tokens whose first choice is each expert -> (E,) float32."""
+    return torch.sum(F.one_hot(topi[..., 0], E).float(), dim=(0, 1))
+
+
+@by_rule(partition.experts)
+def _experts(buf, w_gate, w_up, w_down):
+    """Every expert's SwiGLU over its (B, C, D) rows of ``buf`` (B, E, C,
+    D): batched products over the experts, in the model type."""
+    g = torch.einsum("becd,edf->becf", buf, w_gate)
+    u = torch.einsum("becd,edf->becf", buf, w_up)
+    h = F.silu(g.float()).to(buf.dtype) * u
+    h = shard_act(h, ("batch", "experts", None, "ffn"))
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
 def moe_route(cfg: ModelConfig, p, x):
     """The router of ``moe_ffn_tokens``: x (B, T, D) -> probs (B,T,E) f32,
     renormalised top-k weights topv (B,T,K) f32, experts topi (B,T,K),
@@ -409,21 +487,11 @@ def moe_route(cfg: ModelConfig, p, x):
     order).  Each (token, slot) is ranked within its expert in the flat
     T*K order of its own sequence; ranks >= C go to the sentinel row E*C.
     """
-    B, T, _ = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    T = x.shape[1]
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[..., :K], topi[..., :K]
-    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
-
-    C = min(_round_up(max(1, int(K * T / E * cfg.capacity_factor)), 8), T)
-    flat_e = topi.reshape(B, T * K)
-    onehot = F.one_hot(flat_e, E)                      # (B, T*K, E)
-    ranks = torch.gather(torch.cumsum(onehot, dim=1), 2,
-                         flat_e[..., None])[..., 0] - 1
-    keep = ranks < C
-    dst = torch.where(keep, flat_e * C + ranks, torch.full_like(ranks, E * C))
+    C = _capacity(cfg, T)
+    topv, topi, keep, dst = _route_from_probs(probs, K=cfg.top_k, C=C)
     return probs, topv, topi, C, keep, dst
 
 
@@ -434,34 +502,23 @@ def moe_ffn_tokens(cfg: ModelConfig, p, x):
     Every sequence dispatches into its own (E, C, D) buffer (GShard groups
     = the batch rows); tokens that overflow an expert's capacity are
     dropped (contribute zero).  The expert products are plain batched
-    matmuls over the experts, in the model type.
+    matmuls over the experts, in the model type.  Partitioned, the
+    buffer is split over the experts' axis, each rank's own slice of a
+    dispatch it computes whole, and gathered whole for the combine.
     """
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     probs, topv, topi, C, _, dst = moe_route(cfg, p, x)
 
-    x_rep = torch.repeat_interleave(x, K, dim=1)       # (B, T*K, D)
-    buf = x.new_zeros((B, E * C + 1, D))
-    bidx = torch.arange(B, device=x.device)[:, None]
-    buf[bidx, dst] = x_rep     # rows at the sentinel E*C are thrown away
-    buf = buf[:, :E * C].reshape(B, E, C, D)
+    buf = _dispatch(x, dst, E=E, C=C, K=K)
     buf = shard_act(buf, ("batch", "experts", None, None))
 
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    h = shard_act(h, ("batch", "experts", None, "ffn"))
-    out_buf = torch.einsum("becf,efd->becd", h, p["w_down"])
+    out_buf = _experts(buf, p["w_gate"], p["w_up"], p["w_down"])
     out_buf = shard_act(out_buf, ("batch", "experts", None, None))
-    out_flat = torch.cat([out_buf.reshape(B, E * C, D),
-                          out_buf.new_zeros((B, 1, D))], dim=1)
-
-    gathered = out_flat[bidx, dst]                     # (B, T*K, D)
-    out = torch.sum(gathered.reshape(B, T, K, D)
-                    * topv[..., None].to(x.dtype), dim=2)
+    out = _combine(out_buf, dst, topv)
 
     # aux: load-balance loss (Switch) — mean fraction * mean prob per expert
-    frac = torch.mean(F.one_hot(topi[..., 0], E).float(), dim=(0, 1))
+    frac = _first_choice_counts(topi, E=E) / (B * T)
     imp = torch.mean(probs, dim=(0, 1))
     aux = E * torch.sum(frac * imp)
     return out, aux
@@ -493,7 +550,11 @@ def apply_moe(cfg: ModelConfig, p, x):
 def _mamba_gates(cfg, p, xr):
     """Common pre-scan computation: xr (B,S,di) -> dt, Bc, Cc (float32)."""
     dr, ds = cfg.dt_rank, cfg.ssm_state
-    dbc = (xr @ p["x_proj"]).float()                   # (B,S,dr+2ds)
+    # x_proj contracts the inner dim: partitioned over "inner", the
+    # product is a Partial sum, reduced here (it is small) rather than
+    # carried into the scan's (B, chunk, di, ds) tensors
+    dbc = shard_act((xr @ p["x_proj"]).float(),
+                    ("batch", None, None))             # (B,S,dr+2ds)
     dt_low, Bc, Cc = torch.split(dbc, [dr, ds, ds], dim=-1)
     dt = F.softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"])
     return dt, Bc, Cc                      # (B,S,di), (B,S,ds), (B,S,ds)
@@ -527,6 +588,11 @@ class _Recurrence(torch.autograd.Function):
         return a[:, 0] * G[:, 0], G * prev, G
 
 
+@by_rule(partition.recurrence)
+def _recurrence(h0, a, b):
+    return _Recurrence.apply(h0, a, b)
+
+
 def _ssm_chunk(h, dt_c, B_c, C_c, x_c, A, Dp):
     """One chunk of the selective scan, carried from state h (B,di,ds).
 
@@ -538,7 +604,7 @@ def _ssm_chunk(h, dt_c, B_c, C_c, x_c, A, Dp):
     """
     a = torch.exp(dt_c[..., None] * A)                       # (B,c,di,ds)
     b = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
-    hs = _Recurrence.apply(h, a, b)
+    hs = _recurrence(h, a, b)
     y = torch.einsum("bcds,bcs->bcd", hs, C_c) + Dp * x_c
     return hs[:, -1].clone(), y
 

@@ -32,7 +32,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed import partition
+from repro_torch.distributed.api import shard_act, split_dim
+from repro_torch.distributed.partition import by_rule
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.utils.device import resolve_device
@@ -328,11 +330,17 @@ def cache_from_jax(cfg: ModelConfig, np_tree: dict, device="cuda") -> list:
 # --------------------------------------------------------------------------
 
 
+@by_rule(partition.embed)
+def _embed(table, tokens):
+    """``table[tokens]``."""
+    return table[tokens]
+
+
 def _inputs(cfg: ModelConfig, params, tokens, prefix_embeds, enc_frames):
     """The stack's input: token embeddings after the VLM prefix (cast to
     the model type), sinusoidal positions where the config has them; the
     positions (1, S); and an encoder-decoder's encoder output."""
-    h = params["embed"]["table"][tokens]
+    h = _embed(params["embed"]["table"], tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
@@ -366,23 +374,36 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
         out, (state, conv) = L.mamba_scan(cfg, p["mamba"], hn)
         if entry is not None:
             entry["h"], entry["conv"] = state, conv
-    h = h + out
+    h = _residual(h, out)
     if "xattn" in p and enc_out is not None:
         hx = L.apply_norm(cfg, p["xattn_norm"], h)
-        h = h + L.attention_plain(cfg, p["xattn"], hx, causal=False,
-                                  kv_x=enc_out)
+        h = _residual(h, L.attention_plain(cfg, p["xattn"], hx,
+                                           causal=False, kv_x=enc_out))
         if entry is not None:
-            shape = (h.shape[0], -1, cfg.n_kv_heads, cfg.resolved_head_dim)
-            entry["xk"] = (enc_out @ p["xattn"]["wk"]).reshape(shape)
-            entry["xv"] = (enc_out @ p["xattn"]["wv"]).reshape(shape)
+            heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+            entry["xk"] = split_dim(enc_out @ p["xattn"]["wk"], -1, heads)
+            entry["xv"] = split_dim(enc_out @ p["xattn"]["wv"], -1, heads)
     if spec.ffn == "dense":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
-        h = h + L.apply_mlp(cfg, p["ffn"], hf)
+        h = _residual(h, L.apply_mlp(cfg, p["ffn"], hf))
     elif spec.ffn == "moe":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
         out, aux = L.apply_moe(cfg, p["moe"], hf)
-        h = h + out
+        h = _residual(h, out)
     return h, aux
+
+
+def _residual(h, out):
+    """``h + out``, the residual stream constrained to its batch shards
+    and whole along the sequence and the width: partitioned, a block's
+    output (a Partial sum where its last product contracts a split dim)
+    is reduced here, as Megatron's row-parallel products are, instead of
+    being split along the sequence, which DTensor cannot plan cheaply
+    once the batch is split over two mesh axes.  The reference
+    constrains the stream once, at the stack's input; this constraint
+    after every block is the port's own (its cost on the pod mesh:
+    ``scripts/compare_dryrun_collectives.py --residual``)."""
+    return shard_act(h + out, ("batch", None, None))
 
 
 def _superblock_fwd(cfg: ModelConfig, sb, h, positions, enc_out,
@@ -466,9 +487,10 @@ def encode(cfg: ModelConfig, params, enc_frames):
 
 def _encoder_layer(cfg: ModelConfig, p, h):
     hn = L.apply_norm(cfg, p["norm"], h)
-    h = h + L.attention_plain(cfg, p["attn"], hn, causal=False, rope=False)
+    h = _residual(h, L.attention_plain(cfg, p["attn"], hn, causal=False,
+                                       rope=False))
     hf = L.apply_norm(cfg, p["ffn_norm"], h)
-    return h + L.apply_mlp(cfg, p["ffn"], hf)
+    return _residual(h, L.apply_mlp(cfg, p["ffn"], hf))
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
@@ -514,7 +536,7 @@ def hidden_logits(cfg: ModelConfig, params, h):
     if h2.dtype == torch.float32 or h2.device.type == "cpu":
         out = h2.float() @ table.float().T
     else:
-        out = _MatmulF32.apply(h2, table)
+        out = _matmul_f32(h2, table)
     out = out.reshape(*h.shape[:-1], table.shape[0])
     return shard_act(out, ("batch", None, "vocab")) if out.ndim == 3 else out
 
@@ -540,6 +562,11 @@ class _MatmulF32(torch.autograd.Function):
         g = g.to(h2.dtype)
         return (g @ table if ctx.needs_input_grad[0] else None,
                 g.T @ h2 if ctx.needs_input_grad[1] else None)
+
+
+@by_rule(partition.matmul_f32)
+def _matmul_f32(h2, table):
+    return _MatmulF32.apply(h2, table)
 
 
 def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None,
@@ -653,7 +680,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     old contents.
     """
     _check_supported(cfg)
-    h = params["embed"]["table"][tokens[:, None]]  # (B,1,D)
+    h = _embed(params["embed"]["table"], tokens[:, None])  # (B,1,D)
     if cfg.pos_type == "sinusoidal":
         h = h + L.sinusoidal_positions(pos[:, None], cfg.d_model).to(h.dtype)
     for sb, sb_cache in zip(params["blocks"], cache):
@@ -676,8 +703,8 @@ def _project_kv_cache(cfg: ModelConfig, p, hn, positions, ring_len: int):
     v = hn @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = split_dim(k, -1, (KV, hd))
+    v = split_dim(v, -1, (KV, hd))
     if cfg.pos_type == "rope":
         k = L.apply_rope(k, positions, cfg.rope_theta)
     if ring_len >= S:

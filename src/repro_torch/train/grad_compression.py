@@ -11,12 +11,16 @@ returned alongside):
 
 On one card there is no reduction to shrink; what these functions keep
 is the algorithm (the rounding, the kept entries, convergence under
-error feedback), equal to the reference's on the same gradients.
+error feedback), equal to the reference's on the same gradients.  On
+DTensor gradients they compress the global gradient, as the
+reference's do under GSPMD: a Partial is reduced first.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import partition
+from repro_torch.distributed.partition import by_rule
 from repro_torch.utils.tree import tree_map
 
 
@@ -29,13 +33,19 @@ def _int8_roundtrip(g: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+@by_rule(partition.topk_threshold)
+def _topk_threshold(g: torch.Tensor, frac: float) -> torch.Tensor:
+    """The k-th largest |g| (k = frac of the entries, at least 1)."""
+    flat = torch.abs(g.reshape(-1))
+    k = max(1, int(flat.shape[0] * frac))
+    return torch.topk(flat, k).values[-1]
+
+
 def _topk_mask(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:
     """g with every entry below the k-th largest |g| zeroed (k = frac of
     the entries, at least 1).  Entries tied with the threshold are all
     kept, as the reference's ``>=``."""
-    flat = torch.abs(g.reshape(-1))
-    k = max(1, int(flat.shape[0] * frac))
-    thresh = torch.topk(flat, k).values[-1]
+    thresh = _topk_threshold(g, frac)
     return torch.where(torch.abs(g) >= thresh, g, torch.zeros_like(g))
 
 
@@ -98,5 +108,5 @@ def compress_with_feedback(grads, residuals, method: str = "int8",
 
 
 def init_residuals(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)

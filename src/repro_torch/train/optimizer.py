@@ -56,10 +56,11 @@ def lr_at(oc: OptConfig, step) -> torch.Tensor:
 def adamw_init(params, oc: OptConfig) -> dict:
     """``{"step", "mu", "nu"}`` (+ ``"master"`` with ``keep_master``): a
     zero int32 step on the parameters' device, float32 zero moments, and
-    a float32 copy of every parameter (a copy even of a float32 one)."""
+    a float32 copy of every parameter (a copy even of a float32 one).
+    The moments and the master are placed as their parameters (DTensor
+    parameters give DTensor state); the step is a plain scalar."""
     dev = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
              "mu": tree_map(zeros, params),
              "nu": tree_map(zeros, params)}

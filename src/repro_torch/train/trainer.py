@@ -7,6 +7,9 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import partition
+from repro_torch.distributed.api import partitioned
+from repro_torch.distributed.partition import by_rule
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.grad_compression import compress_grads
@@ -18,9 +21,16 @@ def _ce_sum(cfg, params, hc, tc, mc):
     """Summed masked cross entropy of one chunk: float32 log-softmax over
     ``lm.hidden_logits``.  A masked target (< 0) reads class 0 and is
     multiplied by 0, as the reference's wrapped index is."""
-    logp = torch.log_softmax(lm.hidden_logits(cfg, params, hc), dim=-1)
-    tl = torch.gather(logp, -1, tc.clamp(min=0).long()[..., None])[..., 0]
+    tl = _logprob(lm.hidden_logits(cfg, params, hc), tc.clamp(min=0).long())
     return -torch.sum(tl * mc)
+
+
+@by_rule(partition.logprob)
+def _logprob(logits, t):
+    """log_softmax(logits)[..., t]: each position's log-probability of its
+    target."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, t[..., None])[..., 0]
 
 
 def _ce_from_hidden(cfg, params, h, targets, chunk: int):
@@ -86,17 +96,25 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
       the reference's.
     - compression: None | "int8" | "topk" — gradient compression applied
       before the update.
+
+    DTensor parameters and state (``distributed.api.distribute_tree``)
+    make it the partitioned step: every operation runs on its rank's
+    shards, with the collectives DTensor's placements call for.
     """
 
     def train_step(params, opt_state, batch):
+        with partitioned(params):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if microbatches > 1:
             B = batch["tokens"].shape[0]
             if B % microbatches:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             n = B // microbatches
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(microbatches):

@@ -5,7 +5,7 @@ containers.  Every helper visits leaves in the reference's
 ``jax.tree_util`` order: dict keys sorted, list and tuple items by
 index, ``None`` an empty subtree.  A leaf's path string is its keys and
 indices joined by ``/`` (``blocks/0/l0/attn/wq``), as the reference's
-``_path_str``.
+``_path_str``.  A DTensor is a leaf like any tensor.
 """
 from __future__ import annotations
 
@@ -85,6 +85,9 @@ def tree_scale(tree, s):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the float32 sum of every leaf's float32 sum of squares."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """sqrt of the float32 sum of every leaf's float32 sum of squares; on
+    DTensor leaves the sum is ``distributed.partition.sum_scalars``'s,
+    reduced once."""
+    from repro_torch.distributed.partition import sum_scalars  # imports us
+    return torch.sqrt(sum_scalars([torch.sum(torch.square(x.float()))
+                                   for x in tree_leaves(tree)]))

@@ -1,15 +1,19 @@
-"""The port's operation counter and meta-device dry run, on the CPU.
+"""The port's operation counter and partitioned dry run, on the CPU.
 
 ``launch.op_cost`` on the four programs of ``tests/test_hlo_cost.py``: a
 512^3 matmul's FLOPs exactly, a loop of 10 and a nested 4 x 5 loop
 counted trip by trip, and bytes that grow with the trip count.  A smoke
 dry-run cell of each step kind (train, prefill, decode) on the pod and
-multipod meshes: the bytes one device holds of the parameters, the
-optimizer state, the cache and the inputs equal the reference's shard
-shapes (its ``MeshRules`` on a ``jax.sharding.AbstractMesh``, its trees
-from ``eval_shape``), and the counted FLOPs equal the matmuls of the
-same cell counted by hand for a dense forward.  ``dryrun.main`` writes
-its artifacts under the directory it is given.
+multipod meshes, built as a partitioned program on a ``fake`` group of
+256 (512) ranks: the bytes one device holds of the parameters, the
+optimizer state, the cache and the inputs, and the program's argument
+bytes, equal the reference's shard shapes (its ``MeshRules`` on a
+``jax.sharding.AbstractMesh``, its trees from ``eval_shape``); the
+collectives give a collective time, the dominant term is one of three,
+and one device runs at least its share of the step's FLOPs.  The
+unpartitioned FLOPs equal the matmuls of the same cell counted by hand
+for a dense forward.  ``dryrun.main`` writes its artifacts under the
+directory it is given.
 """
 import json
 import math
@@ -18,7 +22,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import AbstractMesh, NamedSharding
+from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs import input_specs as jinput_specs
 from repro.configs import smoke_config as jsmoke
@@ -29,10 +35,13 @@ from repro.train.optimizer import OptConfig as JOptConfig
 from repro.train.optimizer import adamw_init as jadamw_init
 from repro.train.optimizer import opt_logical_axes as jopt_logical_axes
 from repro_torch.configs import smoke_config
+from repro_torch.distributed.api import place
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh, virtual_device_mesh
 from repro_torch.launch.op_cost import OpCost, analyze
 from repro_torch.models import lm
 from repro_torch.models.config import ShapeCell
+from repro_torch.utils.tree import tree_leaves
 
 MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model"))}
@@ -86,6 +95,24 @@ def test_views_move_no_bytes_and_real_tensors_count_too():
         x.t()
         x.view(32)[1:]
     assert c.flops == 0 and c.bytes == 8 * 4 * 4  # ones writes; views 0
+
+
+def test_temp_bytes_of_a_placed_program_counted_by_hand():
+    """On 8 ranks: a row block of x (8 of its 64 rows) times a replicated
+    w holds one (8, 48) float32 block; the arguments, written in place
+    or not, are no temporaries."""
+    mesh = virtual_device_mesh(Mesh(("x",), (8,))).device_mesh
+    try:
+        x = place(_meta(64, 32), mesh, [Shard(0)])
+        w = place(_meta(32, 48), mesh, [Replicate()])
+        with OpCost(given=(x, w)) as c:
+            x.to_local().mul_(2)
+            y = x @ w
+        assert y.to_local().shape == (8, 48)
+        assert c.peak_bytes == 8 * 48 * 4
+        assert c.flops == 2 * 8 * 32 * 48
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------ smoke dry runs
@@ -154,8 +181,32 @@ def test_smoke_cell_bytes_per_device_equal_the_reference(arch, kind, mesh):
     assert art["ok"] and art["chips"] == math.prod(MESHES[mesh][0])
     want = _ref_cell(arch, JShapeCell(f"smoke_{kind}", 32, 32, kind), mesh)
     assert art["per_device_bytes"] == want
+    # the program's arguments: the parameters, the optimizer state or
+    # the cache it takes, and the inputs (a prefill makes its cache)
+    taken = {"train": ("params", "opt", "inputs"),
+             "prefill": ("params", "inputs"),
+             "decode": ("params", "cache", "inputs")}[kind]
+    assert art["memory"]["argument_size_in_bytes"] == sum(
+        want[k] for k in taken)
+    assert art["memory"]["output_size_in_bytes"] > 0
+    assert art["memory"]["temp_size_in_bytes"] > 0
+    if kind == "train":
+        # one device's temporaries: never the whole optimizer state (a
+        # float32 master and two moments of every parameter)
+        n = sum(t.numel() for t in
+                tree_leaves(lm.abstract_params(smoke_config(arch))))
+        assert art["memory"]["temp_size_in_bytes"] < 3 * 4 * n
+    assert art["torch"] == torch.__version__
     assert art["cost"]["flops"] > 0 and art["cost"]["bytes"] > 0
-    assert art["dominant"] in ("compute_s", "memory_s")
+    assert art["cost"]["flops_per_device"] >= art["cost"]["flops"] / \
+        art["chips"]
+    coll = art["collectives"]
+    assert coll["total_bytes"] == sum(coll["bytes"].values()) > 0
+    terms = art["roofline_terms"]
+    assert terms["collective_s"] == coll["total_bytes"] / dryrun.NET_BW > 0
+    assert art["dominant"] in ("compute_s", "memory_s", "collective_s")
+    assert terms[art["dominant"]] == max(
+        terms[k] for k in ("compute_s", "memory_s", "collective_s"))
 
 
 def test_smoke_dense_forward_flops_counted_by_hand():
@@ -189,4 +240,5 @@ def test_dryrun_main_writes_artifacts(tmp_path, monkeypatch, capsys):
                                           mesh).read_text())
         assert art["ok"] and art["params"] == 463987712
         assert art["per_device_bytes"]["cache"] > 0
-        assert art["roofline_terms"]["collective_s"] is None
+        assert art["roofline_terms"]["collective_s"] > 0
+        assert art["collectives"]["counts"]["all-reduce"] > 0

@@ -54,11 +54,13 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.obs.flight, repro_torch.obs.export\n"
             "import repro_torch.obs, repro_torch.embeddings.encoder\n"
             "import repro_torch.distributed.coordinator\n"
+            "import repro_torch.distributed.partition\n"
             "import repro_torch.stream, repro_torch.launch.serve\n"
             "import repro_torch.launch.watch, repro_torch.examples\n"
             "import repro_torch.examples.watch_demo\n"
             "import repro_torch.train, repro_torch.launch.train\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.op_cost\n"
+            "import repro_torch.launch.collectives, repro_torch.launch.mesh\n"
             "import repro_torch.examples.train_backbone\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")

@@ -242,8 +242,11 @@ def test_meshes():
         "pod": 2, "data": 16, "model": 16}
     with pytest.raises(RuntimeError, match="need 256 devices"):
         make_production_mesh(device="cpu")
-    local = make_local_mesh(1, 1, device="cpu")
-    assert local.shape == {"data": 1, "model": 1} and local.devices
+    assert pod.device_mesh is None  # a layout only
+    # a local mesh stands over a process group; without one it raises
+    # (tests/test_torch_sharded.py builds one over a gloo group)
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        make_local_mesh(1, 1, device="cpu")
     with pytest.raises(RuntimeError):
         make_local_mesh(2, 1, device="cpu")
 
