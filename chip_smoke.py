@@ -152,7 +152,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             idle share each side.  (b) The elastic restore both ways,
             exact, and a step after it.  (c) python -m
             repro_torch.launch.dryrun for qwen1.5-0.5b x train_4k x pod
-            and multipod and jamba-v0.1-52b x decode_32k x pod, each in a
+            and multipod, jamba-v0.1-52b x decode_32k x pod, gemma3-12b x
+            train_4k and long_500k x pod, mixtral-8x22b and
+            falcon-mamba-7b x decode_32k x pod, each in a
             process of its own: collectives by kind, the three roofline
             terms, argument and temporary bytes a device.  (d) pytest -m
             cuda over tests/test_torch_sharded_card.py.
@@ -1951,7 +1953,14 @@ def phase_train(counted, by_path, log, smi, dev="cuda"):
 SHARD_STEPS = 3              # phase 13: steps of the partitioned loop
 SHARD_TIMED = 2              # steps timed a side, then one profiled
 DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", "both"),
-                ("jamba-v0.1-52b", "decode_32k", "pod"))
+                ("jamba-v0.1-52b", "decode_32k", "pod"),
+                # query heads kept split over KV heads that do not divide
+                # the model axis; MoE, Mamba and a cache split over two
+                # mesh axes at decode
+                ("gemma3-12b", "train_4k", "pod"),
+                ("mixtral-8x22b", "decode_32k", "pod"),
+                ("falcon-mamba-7b", "decode_32k", "pod"),
+                ("gemma3-12b", "long_500k", "pod"))
 
 
 def _step_times(step_fn, state, batch, log, tag):
@@ -2301,7 +2310,15 @@ def main() -> int:
     log(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---------------------------------------------------------- 1. build
-    t0 = monotonic()
+    t0 = t_script = t_last = monotonic()
+    phase_s = {}  # wall seconds a phase took, for the log
+
+    def mark(name):
+        nonlocal t_last
+        now = monotonic()
+        phase_s[name] = round(now - t_last, 1)
+        t_last = now
+
     build.library()
     log(f"[build] kernels built and loaded in {monotonic() - t0:.1f} s")
     for line in build.build_log().splitlines():
@@ -2823,29 +2840,36 @@ def main() -> int:
         f"{agree:.4f} of {N_GEN * MAX_NEW} tokens (reported, not required: "
         f"near-ties over the vocab flip in bf16)")
 
+    mark("1-5 build, kernels, data plane, model path, generate")
+
     # -------------------------------------------------------- 6. session
     session = phase_session(ds, mds, engine, tok, counted, by_path, log, smi,
                             cfg.n_layers)
     log(json.dumps({"session": session}))
+    mark("6 session")
 
     # --------------------------------------------------------- 7. encode
     encode = phase_encode(mds, counted, log, smi)
     log(json.dumps({"encode": encode}))
+    mark("7 encode")
 
     # -------------------------------------------------------- 8. chunked
     chunked = phase_chunked(counters, log, smi)
     log(json.dumps({"chunked": chunked}))
+    mark("8 chunked")
 
     # -------------------------------------------------------- 9. service
     service = phase_service(mds, engine, tok, counted, by_path, log, smi,
                             cfg.n_layers)
     log(json.dumps({"service": service}))
+    mark("9 service")
 
     # --------------------------------------------------------- 10. stream
     stream = phase_stream(ds, mds, engine, tok, counted, by_path, log, smi,
                           cfg.n_layers)
     stream.update(phase_cli(counted, by_path, log, smi))
     log(json.dumps({"stream": stream}))
+    mark("10 stream")
 
     # ----------------------------------------------------------- 11. zoo
     # phase 4's llama3.1-8b (16 GB) and its engines go first: jamba's 16
@@ -2855,12 +2879,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo = phase_zoo(mds, counted, by_path, log, smi)
     log(json.dumps({"zoo": zoo}))
+    mark("11 zoo")
 
     # ---------------------------------------------------------- 12. train
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(counted, by_path, log, smi)
     log(json.dumps({"train": train}))
+    mark("12 train")
 
     # -------------------------------------------------------- 13. sharded
     gc.collect()
@@ -2872,6 +2898,9 @@ def main() -> int:
         f"{sharded['train']['partitioned']['idle_share']:.4f} against "
         f"{train['qwen']['idle_share']:.4f})")
     log(json.dumps({"sharded": sharded}))
+    mark("13 sharded")
+    log(f"[timing] wall seconds a phase {phase_s}; the script "
+        f"{monotonic() - t_script:.1f} s after its imports")
 
     kernels = []
     for name, rec in record.items():

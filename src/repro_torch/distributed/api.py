@@ -121,10 +121,14 @@ def partitioned(tree):
 
 def split_dim(x, dim: int, sizes: tuple):
     """``x.unflatten(dim, sizes)``.  DTensor can split a sharded dim only
-    where the first of ``sizes`` divides into the shards (GQA's KV heads
-    over a wider model axis do not), so a DTensor first gathers the mesh
-    dims that split ``dim`` beyond what ``sizes[0]`` takes, the minor
-    ones first."""
+    where the first of ``sizes`` divides into the shards, so a DTensor
+    first gathers the mesh dims that split ``dim`` beyond what
+    ``sizes[0]`` takes, the minor ones first.  The attention splits q
+    into its H heads alone, never into (KV, G) groups, so q stays split
+    wherever its heads divide the model axis; k and v, split into their
+    KV heads, are gathered where those do not (8 KV heads over 16 model
+    ranks), and ``partition.sdpa`` reads from them only the KV heads
+    each rank's queries read."""
     if isinstance(x, DTensor):
         d = dim % x.ndim
         lead = sizes[0] if sizes[0] != -1 else x.shape[d] // math.prod(

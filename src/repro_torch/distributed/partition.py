@@ -19,9 +19,13 @@ the layout GSPMD gives the reference's same operation.
 Rules and why each exists ("cannot": no DTensor strategy; "slow":
 DTensor's planner takes minutes a shape on the 3-D production mesh):
 
-- ``sdpa``: attention on each rank's sequences and KV heads (slow);
-  without gradients a slot-split cache stays split (flash-decoding
-  across ranks, ``_sdpa_split_keys``).
+- ``sdpa``: attention, plain or chunked, on each rank's sequences and
+  heads (slow; the chunked loops would run op by op on DTensors):
+  where the KV heads do not divide the model axis, q keeps its split
+  of the query heads and each rank computes only its own
+  (``_own_heads``), and where the query heads do not divide it either,
+  its own query rows (``_own_rows``); without gradients a slot-split
+  cache stays split (flash-decoding across ranks, ``_sdpa_split_keys``).
 - ``write_slots``: a decode step's cache write, into each rank's own
   block of sequences and slots (cannot: an indexed write into a
   sharded dim).
@@ -101,14 +105,27 @@ def partial_where_sharded(placements) -> tuple:
 
 # ------------------------------------------------------------ attention
 
-def sdpa(fn, q, k, v, mask, scale):
-    """Attention (``fn``: q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask
-    broadcastable (B,1,1,Sq,Sk)) on each rank's own sequences and KV
-    heads (attention never mixes either), laid out as k and v are, the
-    larger operands (a decode step's cache): q takes their shards of
-    those dims and everything else is gathered, the mask takes the rows'
-    split where it has one row a sequence.  Without gradients (serving),
-    a cache split along its slots stays split: ``_sdpa_split_keys``."""
+def sdpa(fn, q, k, v, mask, scale, *, split_rows=True, **kwargs):
+    """Attention (``fn``: q (B,Sq,H,hd) with H = KV * G heads, k/v
+    (B,Sk,KV,hd), ``mask`` broadcastable (B,1,1,Sq,Sk) or any other
+    tensor with a row a sequence, ``kwargs`` static) on each rank's own
+    sequences, heads and query rows (attention never mixes any of them).
+    k and v keep their shards of the batch and the KV heads; q takes the
+    same, the queries of a rank's KV heads.  On a mesh dim where the KV
+    heads do not divide (so k and v arrive gathered) but q's H heads do,
+    q keeps its own split, as GSPMD keeps ``wq``'s ("embed", "heads"):
+    each rank computes only its own query heads, reading the KV heads
+    they read from the gathered k and v (``_own_heads``).  On one where
+    neither divides (whisper-base's 8 heads over 16 model ranks), q is
+    split along its rows instead, where they divide (``split_rows``; the
+    chunked schedules' loops take whole sequences), each rank reading
+    its rows of the mask, and the rows are gathered again after it (the
+    products around attention stay as they are planned elsewhere).  k's
+    and v's gradients are Partial sums on both kinds of mesh dim.  The
+    output lies as q does.  A mask with a row a sequence takes the
+    rows' split.  Without gradients (serving), a cache split along its
+    slots stays split: ``_sdpa_split_keys``, with q whole on those mesh
+    dims."""
     mesh = k.device_mesh
     pk = keep_shards(k, (0, 1, 2))
     split = [i for i, p in enumerate(pk) if p == Shard(1) and mesh.size(i) > 1]
@@ -116,20 +133,75 @@ def sdpa(fn, q, k, v, mask, scale):
         split = []
     if not split:
         pk = tuple(Replicate() if p == Shard(1) else p for p in pk)
-    pq = tuple(Replicate() if p == Shard(1) else p for p in pk)
-    fn = partial(fn, scale=scale)
+    own = [i for i, (a, b) in enumerate(zip(pk, q.placements))
+           if a == Replicate() and b == Shard(2)]
+    rows, m = [], 1
+    for i, p in enumerate(pk):
+        if split_rows and p == Replicate() and i not in own and \
+                mesh.size(i) > 1 and q.shape[1] % (m * mesh.size(i)) == 0:
+            rows.append(i)
+            m *= mesh.size(i)
+    pq = tuple(Shard(2) if i in own else Shard(1) if i in rows else
+               Replicate() if p == Shard(1) else p for i, p in enumerate(pk))
+    fn = partial(fn, scale=scale, **kwargs)
     if split:
         lo, n = local_block(k, 1, pk)
         fn = partial(_sdpa_split_keys, scale=scale, lo=lo, n=n,
                      groups=[(mesh, i) for i in split])
-    if mask is None:
-        return local_region(partial(fn, mask=None), pq, (pq, pk, pk),
-                            mesh)(q, k, v)
+    if own:
+        q_lo, _ = local_block(q, 2, pq)
+        kv_lo, _ = local_block(k, 2, pk)
+        G = q.shape[2] // k.shape[2]
+        fn = partial(_own_heads, fn, lo=q_lo - kv_lo * G, G=G)
     pm = None  # a plain mask broadcasts over the rows
     if isinstance(mask, DTensor):
-        pm = tuple(p if p == Shard(0) and mask.shape[0] > 1 else Replicate()
-                   for p in pq)
-    return local_region(fn, pq, (pq, pk, pk, pm), mesh)(q, k, v, mask)
+        r = mask.ndim - 2  # the mask's query rows
+        pm = tuple(Shard(0) if p == Shard(0) and mask.shape[0] > 1 else
+                   Shard(r) if p == Shard(1) and i in rows and
+                   mask.shape[r] > 1 else Replicate()
+                   for i, p in enumerate(pq))
+    if rows and mask is not None and not isinstance(mask, DTensor) and \
+            mask.shape[-2] > 1:
+        lo, n = local_block(q, 1, pq)
+        fn = partial(_own_rows, fn, lo=lo, n=n)
+    grads = None
+    if own or rows:
+        pg = tuple(Partial() if i in own or i in rows else p
+                   for i, p in enumerate(pk))
+        grads = (pq, pg, pg) + (() if mask is None else (pm,))
+    if mask is None:
+        out = local_region(lambda q_, k_, v_: fn(q_, k_, v_, None), pq,
+                           (pq, pk, pk), mesh, grads)(q, k, v)
+    else:
+        out = local_region(fn, pq, (pq, pk, pk, pm), mesh, grads)(q, k, v,
+                                                                  mask)
+    if rows:  # whole rows again, as the output projection expects them
+        out = out.redistribute(mesh, tuple(
+            Replicate() if i in rows else p for i, p in enumerate(pq)))
+    return out
+
+
+def _own_rows(fn, q, k, v, mask, lo, n):
+    """``fn`` on this rank's query rows ``lo`` .. ``lo + n - 1`` of the
+    whole, with its rows of a plain mask that covers every row."""
+    return fn(q, k, v, mask[..., lo:lo + n, :])
+
+
+def _own_heads(fn, q, k, v, mask, lo, G):
+    """``fn`` on this rank's query heads, q (B,Sq,n,hd), heads ``lo`` ..
+    ``lo + n - 1`` counted from the first of the KV heads in k and v
+    (B,Sk,KV,hd), of which head h reads KV head h // G: k and v are cut
+    to the KV heads the n queries read (one, or whole groups of G), or,
+    where the queries straddle groups unevenly, each query's KV head is
+    taken on its own."""
+    n = q.shape[2]
+    a, b = lo // G, (lo + n - 1) // G + 1
+    if b - a == 1 or (lo % G == 0 and n == (b - a) * G):
+        k, v = k[:, :, a:b], v[:, :, a:b]
+    else:
+        idx = torch.arange(lo, lo + n, device=k.device) // G
+        k, v = k[:, :, idx], v[:, :, idx]
+    return fn(q, k, v, mask)
 
 
 def _sdpa_split_keys(q, k, v, mask, scale, lo, n, groups):
@@ -141,6 +213,7 @@ def _sdpa_split_keys(q, k, v, mask, scale, lo, n, groups):
     casts it; the weighted values are then summed over the groups in
     float32, flash-decoding across ranks.  Forward only."""
     from torch.distributed._functional_collectives import all_reduce
+    q = q.unflatten(2, (k.shape[2], -1))
     scores = torch.einsum("bqcgh,bkch->bcgqk", q.float(), k.float()) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask[..., lo:lo + n], -1e30)
@@ -155,7 +228,7 @@ def _sdpa_split_keys(q, k, v, mask, scale, lo, n, groups):
                        v).float()
     for g in groups:
         out = all_reduce(out, "sum", g)
-    return out.to(v.dtype)
+    return out.to(v.dtype).flatten(2, 3)
 
 
 def write_slots(fn, cache, slot, new):

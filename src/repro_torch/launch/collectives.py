@@ -28,9 +28,11 @@ result.  Bytes are one device's.
 from __future__ import annotations
 
 import math
+import os
 import sys
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -87,6 +89,36 @@ def _group_size(args, kwargs) -> int:
     return ints[-1] if ints else 1
 
 
+def program_site(types):
+    """(whether an operation is DTensor's, not the program's; the
+    program's function that ran it).  DTensor works out an operation's
+    output placements and shapes by running it on fake or meta tensors
+    of the global shapes (``_sharding_prop``), which is no device's
+    work.  The site is the innermost function of the model or the
+    trainer on the stack (``models/``, ``train/``), else the innermost
+    of this package, else "autograd" (the engine runs a built-in
+    operation's backward with no frame of the program's)."""
+    if any(issubclass(t, FakeTensor) for t in types):
+        return True, None
+    model = own = None
+    f = sys._getframe(2)  # the dispatch mode's caller
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.endswith(_PROPAGATOR):
+            return True, None
+        if model is None and name.startswith(_PKG):
+            own = own or f.f_code.co_name
+            if name.startswith(_MODEL):
+                model = f.f_code.co_name
+        f = f.f_back
+    return False, model or own or "autograd"
+
+
+_PROPAGATOR = os.path.join("distributed", "tensor", "_sharding_prop.py")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+_MODEL = tuple(os.path.join(_PKG, d) + os.sep for d in ("models", "train"))
+
+
 def _in_shard_dim_alltoall() -> bool:
     """Whether DTensor's CPU fallback for an all-to-all is on the stack."""
     f = sys._getframe(1)
@@ -131,6 +163,7 @@ class CollectiveCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.events: list = []
+        self.sites: list = []  # the program's function of each event
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -150,7 +183,19 @@ class CollectiveCounter(TorchDispatchMode):
             if share > 1:
                 kind = "all-to-all"
             self.events.append((kind, n, rbytes))
+            self.sites.append(program_site(types)[1])
         return out
+
+    def top_sites(self, n: int = 12) -> dict:
+        """Operand bytes by "function kind" for the ``n`` largest: the
+        program's function that issued each collective (DTensor issues a
+        redistribution's where the function's operation needs it)."""
+        total = {}
+        for (kind, size, rbytes), site in zip(self.events, self.sites):
+            key = f"{site} {kind}"
+            total[key] = total.get(key, 0) + wire_rule(kind, rbytes, size)[0]
+        return dict(sorted(total.items(), key=lambda kv: kv[1],
+                           reverse=True)[:n])
 
     def report(self) -> dict:
         out = {k: 0 for k in KINDS}

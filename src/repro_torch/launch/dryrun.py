@@ -18,13 +18,16 @@ metrics replicated; prefill: logits, cache and positions; decode:
 logits and cache).  The artifact carries:
 
 - ``collectives``: bytes, wire bytes and counts of every kind the
-  program ran, the reference's byte rules (``launch.collectives``);
+  program ran, the reference's byte rules (``launch.collectives``), and
+  the program's functions that issued the most bytes (``sites``);
 - ``memory``: argument, output and temporary bytes of one device: the
   local shards of the inputs, of the placed outputs, and the peak of
   the bytes the step's own storages held at once;
 - ``cost``: the unpartitioned step's FLOPs and bytes (counted once, on
   meta tensors) and one device's, counted on its local shards (so
-  replicated work counts on every device);
+  replicated work counts on every device), with the functions and
+  operations that ran the most FLOPs and bytes on it and those whose
+  storages held the most at its peak (``OpCost.top_sites``);
 - ``roofline_terms``: compute, memory and collective time of one device
   and the dominant of the three, against an H100 SXM's 989 TFLOP/s bf16
   dense and 3.35 TB/s, and for collectives the 50 GB/s a DGX H100 gives
@@ -270,7 +273,7 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None,
     finally:
         dist.destroy_process_group()
 
-    collectives = coll.report()
+    collectives = dict(coll.report(), sites=coll.top_sites())
     terms = {"compute_s": cost.flops / PEAK_FLOPS,
              "memory_s": cost.bytes / HBM_BW,
              "collective_s": collectives["total_bytes"] / NET_BW,
@@ -281,7 +284,8 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None,
         trace_s=round(trace_s, 2),
         cost={"flops": total.flops, "bytes": total.bytes,
               "flops_per_device": cost.flops,
-              "bytes_per_device": cost.bytes},
+              "bytes_per_device": cost.bytes,
+              "sites_per_device": cost.top_sites()},
         memory={"argument_size_in_bytes": arg_bytes,
                 "output_size_in_bytes": out_bytes,
                 "temp_size_in_bytes": cost.peak_bytes},

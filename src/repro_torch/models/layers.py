@@ -23,6 +23,7 @@ Mamba-1 (a selective scan) are plain torch, as the reference's are plain
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed import partition
 from repro_torch.distributed.api import merge_heads, shard_act, split_dim
 from repro_torch.distributed.partition import by_rule
+from repro_torch.launch.op_cost import replayed
 from repro_torch.models.config import ModelConfig
 
 # --------------------------------------------------------------------------
@@ -93,30 +95,35 @@ def sinusoidal_positions(positions, d_model: int):
 
 
 def _project_qkv(cfg, p, x, kv_x=None):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    """q (B, S, H, hd), its H = KV * G heads flat, and k/v (B, Skv, KV,
+    hd).  q is grouped by its KV heads only inside the attention
+    products, so a DTensor q keeps its split over a mesh axis that
+    divides the H heads where the KV heads do not divide it
+    (``partition.sdpa``)."""
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     kv_x = x if kv_x is None else kv_x
-    Skv = kv_x.shape[1]
     q = x @ p["wq"]
     k = kv_x @ p["wk"]
     v = kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (split_dim(q, -1, (KV, H // KV, hd)),
+    return (split_dim(q, -1, (cfg.n_heads, hd)),
             split_dim(k, -1, (KV, hd)),
             split_dim(v, -1, (KV, hd)))
 
 
 @by_rule(partition.sdpa)
 def _sdpa(q, k, v, mask, scale):
-    """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask broadcastable (B,1,1,Sq,Sk).
-    """
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask broadcastable (B,1,1,Sq,Sk)
+    -> (B,Sq,H,hd); query head h = kv * G + g reads KV head kv."""
+    q = q.unflatten(2, (k.shape[2], -1))
     scores = torch.einsum("bqcgh,bkch->bcgqk", q.float(), k.float())
     scores = scores * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bcgqk,bkch->bqcgh", probs.to(v.dtype), v)
+    return torch.einsum("bcgqk,bkch->bqcgh", probs.to(v.dtype),
+                        v).flatten(2, 3)
 
 
 def _causal_window_mask(q_pos, k_pos, window):
@@ -134,14 +141,13 @@ def _positions(S: int, device):
 def attention_plain(cfg: ModelConfig, p, x, *, causal: bool, window=None,
                     positions=None, kv_x=None, rope: bool = True):
     """Full-matrix attention; fine for short sequences / encoders."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x, kv_x)
     if positions is None:
         positions = _positions(S, x.device)
     if rope and cfg.pos_type == "rope" and kv_x is None:
-        q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).unflatten(2, q.shape[2:4])
+        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     mask = None
     if causal:
@@ -169,44 +175,42 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
     as the reference's); ``positions`` feeds RoPE.
     """
     B, S, _ = x.shape
-    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
-    G = cfg.n_heads // KV
+    hd = cfg.resolved_head_dim
     cq = min(cfg.attn_chunk_q, S)
     ck = min(cfg.attn_chunk_kv, S)
     if S % cq or S % ck:
         raise ValueError(f"attention_chunked: S={S} is not a multiple of "
                          f"the chunks ({cq}, {ck})")
-    nq, nk = S // cq, S // ck
-    scale = 1.0 / math.sqrt(hd)
-    dev, dt = x.device, x.dtype
 
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
-        positions = _positions(S, dev)
+        positions = _positions(S, x.device)
     if cfg.pos_type == "rope":
-        q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).unflatten(2, q.shape[2:4])
+        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    banded = window is not None and cfg.swa_banded
+    schedule = ("banded" if banded else
+                "tri" if causal and cfg.attn_impl == "tri" else "rect")
+    rows = positions if banded and positions.shape[0] == B else None
+    out = _chunked_sdpa(q, k, v, rows, 1.0 / math.sqrt(hd), causal=causal,
+                        window=window, cq=cq, ck=ck, schedule=schedule)
+    return merge_heads(out) @ p["wo"]
 
-    def block(qi_pos, kj, q_blk, m, l, acc):
-        """Online-softmax update of one q chunk by kv chunk ``kj``."""
-        k_blk = k[:, kj * ck:(kj + 1) * ck]
-        v_blk = v[:, kj * ck:(kj + 1) * ck]
-        s = torch.einsum("bqcgh,bkch->bcgqk", q_blk.float(),
-                         k_blk.float()) * scale
-        if causal:
-            kj_pos = torch.arange(ck, device=dev)[None] + kj * ck
-            msk = _causal_window_mask(qi_pos, kj_pos, window)[:, None, None]
-            s = s.masked_fill(~msk, -1e30)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p_ = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l_new = l * corr + torch.sum(p_, dim=-1)
-        acc_new = acc * corr[..., None] + torch.einsum(
-            "bcgqk,bkch->bcgqh", p_.to(dt), v_blk).float()
-        return m_new, l_new, acc_new
 
-    if window is not None and cfg.swa_banded:
+@by_rule(partial(partition.sdpa, split_rows=False))
+def _chunked_sdpa(q, k, v, rows, scale, *, causal, window, cq, ck,
+                  schedule):
+    """``attention_chunked``'s loops over q/kv chunks: q (B,S,H,hd), k/v
+    (B,S,KV,hd) -> (B,S,H,hd).  ``rows`` (B, S), where given, are the
+    banded schedule's q positions; else chunk qi's rows are qi * cq ..
+    (qi + 1) * cq - 1."""
+    B, S, KV, hd = k.shape
+    q = q.unflatten(2, (KV, -1))
+    G = q.shape[3]
+    nq, nk = S // cq, S // ck
+    dev = q.device
+
+    if schedule == "banded":
         # banded: only the last wb+1 kv chunks can intersect the window
         wb = -(-window // ck)  # ceil
         nband = min(nk, wb + -(-cq // ck))
@@ -216,7 +220,7 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
             # kv chunk base - off; the reference clamps negative chunks to
             # 0 and discards their update, so they are skipped here
             return [base - off for off in range(nband) if base - off >= 0]
-    elif causal and cfg.attn_impl == "tri":
+    elif schedule == "tri":
         def kv_chunks(qi):
             hi = ((qi + 1) * cq + ck - 1) // ck  # kv chunks covering <= q end
             return range(min(hi, nk))
@@ -226,11 +230,10 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
 
     outs = []
     for qi in range(nq):
-        rows = slice(qi * cq, (qi + 1) * cq)
-        q_blk = q[:, rows]
-        if window is not None and cfg.swa_banded and \
-                positions.shape[0] == B:
-            qi_pos = positions[:, rows]
+        span = slice(qi * cq, (qi + 1) * cq)
+        q_blk = q[:, span]
+        if rows is not None:
+            qi_pos = rows[:, span]
         else:
             qi_pos = torch.arange(cq, device=dev)[None] + qi * cq
         m = torch.full((B, KV, G, cq), -1e30, dtype=torch.float32,
@@ -239,10 +242,35 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         acc = torch.zeros((B, KV, G, cq, hd), dtype=torch.float32,
                           device=dev)
         for kj in kv_chunks(qi):
-            m, l, acc = block(qi_pos, kj, q_blk, m, l, acc)
+            m, l, acc = _online_block(q_blk, k, v, qi_pos, m, l, acc, kj, ck,
+                                      scale, causal, window)
         o = acc / torch.clamp(l[..., None], min=1e-30)    # (B,KV,G,cq,hd)
-        outs.append(o.permute(0, 3, 1, 2, 4).to(dt))
-    return merge_heads(torch.cat(outs, dim=1)) @ p["wo"]
+        outs.append(o.permute(0, 3, 1, 2, 4).to(v.dtype))
+    return torch.cat(outs, dim=1).flatten(2, 3)
+
+
+@replayed(7)
+def _online_block(q_blk, k, v, qi_pos, m, l, acc, kj, ck, scale, causal,
+                  window):
+    """Online-softmax update of one q chunk's running max ``m``, sum
+    ``l`` and output ``acc`` by kv chunk ``kj`` (keys kj * ck .. (kj + 1)
+    * ck - 1).  Its counts do not depend on ``kj``: the dry run replays
+    them (``launch.op_cost.replayed``)."""
+    k_blk = k[:, kj * ck:(kj + 1) * ck]
+    v_blk = v[:, kj * ck:(kj + 1) * ck]
+    s = torch.einsum("bqcgh,bkch->bcgqk", q_blk.float(),
+                     k_blk.float()) * scale
+    if causal:
+        kj_pos = torch.arange(ck, device=k.device)[None] + kj * ck
+        msk = _causal_window_mask(qi_pos, kj_pos, window)[:, None, None]
+        s = s.masked_fill(~msk, -1e30)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p_ = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p_, dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bcgqk,bkch->bcgqh", p_.to(v.dtype), v_blk).float()
+    return m_new, l_new, acc_new
 
 
 def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
@@ -268,13 +296,12 @@ def attention_flash(cfg: ModelConfig, p, x, *, causal=True, window=None,
     if positions is None:
         positions = _positions(S, x.device)
     if cfg.pos_type == "rope":
-        q = apply_rope(q.reshape(B, S, -1, hd), positions,
-                       cfg.rope_theta).unflatten(2, q.shape[2:4])
+        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     # (B,H,S,hd) and (B,KV,S,hd) views of the (B,S,heads,hd) projections:
     # the kernel takes their strides, and its output lies as (B,S,H,hd),
     # so neither side copies
-    qh = q.reshape(B, S, -1, hd).transpose(1, 2)
+    qh = q.transpose(1, 2)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     impl = "ref" if cfg.attn_impl == "flash-ref" else "auto"
     out = flash_attention(qh, kh, vh, causal=causal, window=window,
@@ -341,14 +368,13 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
         q = x1 @ p["wq"]
         if "bq" in p:
             q = q + p["bq"]
-        q = split_dim(q, -1, (cfg.n_kv_heads, -1, hd))
+        q = split_dim(q, -1, (cfg.n_heads, hd))
         out = _sdpa(q, cross_kv["k"], cross_kv["v"], None,
                     1.0 / math.sqrt(hd))
         return merge_heads(out) @ p["wo"], cache
     q, k_new, v_new = _project_qkv(cfg, p, x1)
     if cfg.pos_type == "rope":
-        q = apply_rope(q.reshape(B, 1, -1, hd), pos[:, None],
-                       cfg.rope_theta).unflatten(2, q.shape[2:4])
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -547,6 +573,17 @@ def apply_moe(cfg: ModelConfig, p, x):
 # --------------------------------------------------------------------------
 
 
+def _in_proj(cfg, p, x):
+    """x (B,S,D) -> (x, the gate z), each (B,S,di): in_proj's two halves,
+    each its own product split over "inner" (partitioned, a chunk of
+    the whole product, split over "inner" as one dim, would gather it
+    whole on every rank)."""
+    w, di = p["in_proj"], cfg.d_inner
+    return [shard_act(x @ shard_act(half, ("embed", "inner")),
+                      ("batch", None, "inner"))
+            for half in (w[:, :di], w[:, di:])]
+
+
 def _mamba_gates(cfg, p, xr):
     """Common pre-scan computation: xr (B,S,di) -> dt, Bc, Cc (float32)."""
     dr, ds = cfg.dt_rank, cfg.ssm_state
@@ -556,7 +593,8 @@ def _mamba_gates(cfg, p, xr):
     dbc = shard_act((xr @ p["x_proj"]).float(),
                     ("batch", None, None))             # (B,S,dr+2ds)
     dt_low, Bc, Cc = torch.split(dbc, [dr, ds, ds], dim=-1)
-    dt = F.softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"])
+    dt = F.softplus(dt_low @ p["dt_proj"].float()
+                    + p["dt_bias"])
     return dt, Bc, Cc                      # (B,S,di), (B,S,ds), (B,S,ds)
 
 
@@ -572,8 +610,7 @@ class _Recurrence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h0, a, b):
         b[:, 0].addcmul_(a[:, 0], h0)
-        for t in range(1, b.shape[1]):
-            b[:, t].addcmul_(a[:, t], b[:, t - 1])
+        _carry(b, a[:, 1:], reverse=False)
         ctx.mark_dirty(b)
         ctx.save_for_backward(h0, a, b)
         return b
@@ -582,10 +619,30 @@ class _Recurrence(torch.autograd.Function):
     def backward(ctx, g):
         h0, a, hs = ctx.saved_tensors
         G = g.clone(memory_format=torch.contiguous_format)
-        for t in range(G.shape[1] - 2, -1, -1):
-            G[:, t].addcmul_(a[:, t + 1], G[:, t + 1])
+        _carry(G, a[:, 1:], reverse=True)
         prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
         return a[:, 0] * G[:, 0], G * prev, G
+
+
+def _carry(x, c, reverse: bool, stepwise=None) -> None:
+    """In place, one position after another along axis 1 (T positions):
+    x[:, t] += c[:, t - 1] * x[:, t - 1] for t = 1 .. T - 1, or with
+    ``reverse`` x[:, t] += c[:, t] * x[:, t + 1] for t = T - 2 .. 0
+    (``c`` has T - 1 positions).  A meta tensor (the dry run) has no
+    values to carry, so there one operation over every position stands
+    in for the loop (unless ``stepwise``): it reads, multiplies and
+    writes the same elements, so ``launch.op_cost`` counts the same
+    FLOPs, bytes and peak, without the loop's T operations a chunk."""
+    if stepwise is None:
+        stepwise = not x.is_meta
+    if not stepwise:
+        dst, src = (x[:, :-1], x[:, 1:]) if reverse else (x[:, 1:], x[:, :-1])
+        dst.addcmul_(c, src)
+        return
+    for t in (range(x.shape[1] - 2, -1, -1) if reverse
+              else range(1, x.shape[1])):
+        s = t + 1 if reverse else t - 1
+        x[:, t].addcmul_(c[:, min(s, t)], x[:, s])
 
 
 @by_rule(partition.recurrence)
@@ -618,10 +675,7 @@ def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
     """
     B, S, D = x.shape
     di, dc = cfg.d_inner, cfg.ssm_conv
-    xz = shard_act(x @ p["in_proj"], ("batch", None, "inner"))
-    xr, z = torch.chunk(xz, 2, dim=-1)                 # (B,S,di) each
-    xr = shard_act(xr, ("batch", None, "inner"))
-    z = shard_act(z, ("batch", None, "inner"))
+    xr, z = _in_proj(cfg, p, x)                        # (B,S,di) each
 
     # causal depthwise conv along S
     pad = (x.new_zeros((B, dc - 1, di)) if conv0 is None
@@ -659,7 +713,7 @@ def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
 def mamba_decode(cfg: ModelConfig, p, x1, state):
     """One-token Mamba step. state = {"h": (B,di,ds) f32, "conv":
     (B,dc-1,di)} -> (out (B,1,D), new state); ``state`` is not changed."""
-    xr, z = torch.chunk(x1 @ p["in_proj"], 2, dim=-1)  # (B,1,di) each
+    xr, z = _in_proj(cfg, p, x1)                       # (B,1,di) each
     window = torch.cat([state["conv"].to(xr.dtype), xr], dim=1)  # (B,dc,di)
     new_conv = window[:, 1:, :]
     xc = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"]

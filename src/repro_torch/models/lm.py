@@ -394,16 +394,25 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
 
 
 def _residual(h, out):
-    """``h + out``, the residual stream constrained to its batch shards
-    and whole along the sequence and the width: partitioned, a block's
-    output (a Partial sum where its last product contracts a split dim)
-    is reduced here, as Megatron's row-parallel products are, instead of
-    being split along the sequence, which DTensor cannot plan cheaply
+    """``h + out``, the block's output first constrained as the residual
+    stream is, to its batch shards and whole along the sequence and the
+    width: partitioned, a block's output (a Partial sum where its last
+    product contracts a split dim) is reduced here, as Megatron's
+    row-parallel products are, before it meets the stream.  Left to
+    DTensor, the sum of a replicated stream and a Partial output is
+    planned as a Partial stream, whose gradient then reaches the block
+    split along its rows, so the block's backward gathers its weights
+    whole and every model rank repeats the whole product (twice the
+    FLOPs a device of gemma3-12b x train_4k, PERF.md §6); and the stream
+    would be split along the sequence, which DTensor cannot plan cheaply
     once the batch is split over two mesh axes.  The reference
-    constrains the stream once, at the stack's input; this constraint
-    after every block is the port's own (its cost on the pod mesh:
-    ``scripts/compare_dryrun_collectives.py --residual``)."""
-    return shard_act(h + out, ("batch", None, None))
+    constrains the stream once, at the stack's input; these constraints
+    after every block are the port's own (their cost on the pod mesh:
+    ``scripts/compare_dryrun_collectives.py --residual``).  The sum is
+    constrained too: its gradient, so placed, reaches the block whole
+    along the rows."""
+    return shard_act(h + shard_act(out, ("batch", None, None)),
+                     ("batch", None, None))
 
 
 def _superblock_fwd(cfg: ModelConfig, sb, h, positions, enc_out,
@@ -656,19 +665,19 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, c, h, pos):
     else:
         out, state = L.mamba_decode(cfg, p["mamba"], hn, c)
         c.update(state)
-    h = h + out
+    h = _residual(h, out)
     if "xattn" in p and "xk" in c:
         hx = L.apply_norm(cfg, p["xattn_norm"], h)
         out, _ = L.attention_decode(cfg, p["xattn"], hx, None, pos,
                                     cross_kv={"k": c["xk"], "v": c["xv"]})
-        h = h + out
+        h = _residual(h, out)
     if spec.ffn == "dense":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
-        h = h + L.apply_mlp(cfg, p["ffn"], hf)
+        h = _residual(h, L.apply_mlp(cfg, p["ffn"], hf))
     elif spec.ffn == "moe":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
         out, _ = L.apply_moe(cfg, p["moe"], hf)
-        h = h + out
+        h = _residual(h, out)
     return h
 
 
@@ -683,6 +692,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     h = _embed(params["embed"]["table"], tokens[:, None])  # (B,1,D)
     if cfg.pos_type == "sinusoidal":
         h = h + L.sinusoidal_positions(pos[:, None], cfg.d_model).to(h.dtype)
+    h = shard_act(h, ("batch", None, None))
     for sb, sb_cache in zip(params["blocks"], cache):
         for i, spec in enumerate(cfg.pattern):
             h = _apply_layer_decode(cfg, spec, sb[f"l{i}"], sb_cache[f"l{i}"],
@@ -732,6 +742,9 @@ def prefill_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     h, positions, enc_out = _inputs(cfg, params, tokens, prefix_embeds,
                                     enc_frames)
     B, S, _ = h.shape
+    # as forward_hidden: partitioned, the embedding's Partial sum is
+    # reduced here, not carried into the first layer's products
+    h = shard_act(h, ("batch", None, None))
     h, _, cache = _run_stack(cfg, params, h, positions, enc_out,
                              max_len=max_len or S)
     return h, cache, torch.full((B,), S, dtype=torch.long, device=h.device)
