@@ -154,9 +154,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
             repro_torch.launch.dryrun for qwen1.5-0.5b x train_4k x pod
             and multipod, jamba-v0.1-52b x decode_32k x pod, gemma3-12b x
             train_4k and long_500k x pod, mixtral-8x22b and
-            falcon-mamba-7b x decode_32k x pod, each in a
+            falcon-mamba-7b x decode_32k x pod, mixtral-8x22b x long_500k
+            x pod and whisper-base x train_4k x pod, each in a
             process of its own: collectives by kind, the three roofline
-            terms, argument and temporary bytes a device.  (d) pytest -m
+            terms, argument and temporary bytes a device; the last two
+            (the experts at batch 1, whisper's attention over 16 model
+            ranks) beside a CPU host's figures, and each must run at
+            most its limit times its share of the step's FLOPs.  (d)
+            pytest -m
             cuda over tests/test_torch_sharded_card.py.
 
 Phase 2 also checks K3 at the join's width (round 0 of phase 6's join: 16
@@ -1960,7 +1965,23 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", "both"),
                 ("gemma3-12b", "train_4k", "pod"),
                 ("mixtral-8x22b", "decode_32k", "pod"),
                 ("falcon-mamba-7b", "decode_32k", "pod"),
-                ("gemma3-12b", "long_500k", "pod"))
+                ("gemma3-12b", "long_500k", "pod"),
+                # the experts at batch 1 (D split over data); whisper's
+                # attention where neither its heads nor its 1,500 frames
+                # divide the 16 model ranks
+                ("mixtral-8x22b", "long_500k", "pod"),
+                ("whisper-base", "train_4k", "pod"))
+# those two: a device's FLOPs over its share of the step's (whole-step
+# FLOPs / chips) may not pass the limit; the same cells traced on a CPU
+# host (torch 2.13.0+cpu; python -m repro_torch.launch.dryrun) are printed
+# beside the card host's: FLOPs share, compute / memory / collective ms,
+# temporary GiB a device
+DRYRUN_LIMITS = {("mixtral-8x22b", "long_500k", "pod"): 1.10,
+                 ("whisper-base", "train_4k", "pod"): 1.15}
+DRYRUN_CPU = {
+    ("mixtral-8x22b", "long_500k", "pod"): (1.021, 0.001156, 0.4825, 0.1908,
+                                            0.07034),
+    ("whisper-base", "train_4k", "pod"): (1.000, 3.058, 162.0, 121.5, 3.792)}
 
 
 def _step_times(step_fn, state, batch, log, tag):
@@ -2244,6 +2265,25 @@ def phase_sharded(counted, by_path, log, smi, dev="cuda"):
                     f"{t['memory_s']*1e3:.2f} ms: {art['dominant']}; arguments "
                     f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, temporary "
                     f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB a device")
+                limit = DRYRUN_LIMITS.get((arch, shape, mk))
+                if limit:
+                    share = (art["cost"]["flops_per_device"] * art["chips"]
+                             / art["cost"]["flops"])
+                    ms = [t[k] * 1e3 for k in ("compute_s", "memory_s",
+                                               "collective_s")]
+                    sb = DRYRUN_CPU[(arch, shape, mk)]
+                    log(f"[sharded] (c) {arch} x {shape} x {mk}: FLOPs a "
+                        f"device {share:.3f}x its share (limit {limit}; "
+                        f"CPU host {sb[0]:.3f}x), compute / memory / "
+                        f"collective {ms[0]:.4g} / {ms[1]:.4g} / {ms[2]:.4g} "
+                        f"ms (CPU host {sb[1]:.4g} / {sb[2]:.4g} / "
+                        f"{sb[3]:.4g}), temporary "
+                        f"{mem['temp_size_in_bytes'] / 2**30:.4g} GiB "
+                        f"(CPU host {sb[4]:.4g})")
+                    if share > limit:
+                        raise AssertionError(
+                            f"phase 13 {arch} x {shape} x {mk}: FLOPs a "
+                            f"device {share:.3f}x its share, over {limit}")
                 cells[f"{arch}|{shape}|{mk}"] = dict(
                     chips=art["chips"], torch=art["torch"],
                     trace_s=art["trace_s"],

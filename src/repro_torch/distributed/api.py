@@ -145,12 +145,20 @@ def split_dim(x, dim: int, sizes: tuple):
     return x.unflatten(dim, sizes)
 
 
-def merge_heads(x):
+def merge_heads(x, w):
     """``x.flatten(2)``: (B, S, heads..., hd) -> (B, S, heads * hd).  On a
     DTensor, in a local region, so that the gradient, which comes back
     split over the merged dim however the next product splits it, is
     first placed as the heads are (DTensor cannot split it back into
-    heads where their count does not divide into its shards)."""
+    heads where their count does not divide into its shards).  Where the
+    merged heads are whole on a mesh dim that splits the rows of ``w``
+    (the weight of the product that follows, ``x @ w``), they are then
+    split alike, a local slice whose gradient is gathered as DTensor
+    would gather it for the product: the product saves the block, so
+    the backward computes ``w``'s gradient on it, where DTensor's
+    planner, which weighs collectives and not FLOPs, would compute it
+    whole on every rank from the whole ``x`` (whisper-base's 8 heads,
+    gathered over 16 model ranks)."""
     if not isinstance(x, DTensor):
         return x.flatten(2)
     pin = tuple(Replicate() if isinstance(p, Shard) and p.dim > 2 else p
@@ -158,8 +166,12 @@ def merge_heads(x):
     pout = tuple(Shard(p.dim if p.dim < 2 else 2) if isinstance(p, Shard)
                  else p for p in pin)
     grad = tuple(Replicate() if isinstance(p, Partial) else p for p in pin)
-    return local_region(lambda t: t.flatten(2), pout, (pin,),
-                        x.device_mesh, (grad,))(x)
+    out = local_region(lambda t: t.flatten(2), pout, (pin,), x.device_mesh,
+                       (grad,))(x)
+    pl = tuple(Shard(2) if a == Replicate() and b == Shard(0) else a
+               for a, b in zip(out.placements, w.placements))
+    return out if pl == tuple(out.placements) else out.redistribute(
+        x.device_mesh, pl)
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -24,8 +24,10 @@ DTensor's planner takes minutes a shape on the 3-D production mesh):
   where the KV heads do not divide the model axis, q keeps its split
   of the query heads and each rank computes only its own
   (``_own_heads``), and where the query heads do not divide it either,
-  its own query rows (``_own_rows``); without gradients a slot-split
-  cache stays split (flash-decoding across ranks, ``_sdpa_split_keys``).
+  its own query rows (``_own_rows``, padded to even blocks), or at one
+  row its head's slice of hd (``_own_head_slice``); without gradients a
+  slot-split cache stays split (flash-decoding across ranks,
+  ``_sdpa_split_keys``).
 - ``write_slots``: a decode step's cache write, into each rank's own
   block of sequences and slots (cannot: an indexed write into a
   sharded dim).
@@ -33,7 +35,8 @@ DTensor's planner takes minutes a shape on the 3-D production mesh):
   own sequences (cannot: stable sort, cumulative ranks, scatter and
   gather).
 - ``experts``: the expert products on local blocks (cannot: the
-  einsum's placements).
+  einsum's placements), as two regions with the gate and up products'
+  sum over a split D reduced between them.
 - ``recurrence``: the Mamba scan on each rank's (batch, inner, state)
   block (cannot: an autograd function).
 - ``embed``: the vocab-sharded table lookup as a Partial sum (cannot
@@ -116,12 +119,27 @@ def sdpa(fn, q, k, v, mask, scale, *, split_rows=True, **kwargs):
     q keeps its own split, as GSPMD keeps ``wq``'s ("embed", "heads"):
     each rank computes only its own query heads, reading the KV heads
     they read from the gathered k and v (``_own_heads``).  On one where
-    neither divides (whisper-base's 8 heads over 16 model ranks), q is
-    split along its rows instead, where they divide (``split_rows``; the
-    chunked schedules' loops take whole sequences), each rank reading
-    its rows of the mask, and the rows are gathered again after it (the
-    products around attention stay as they are planned elsewhere).  k's
-    and v's gradients are Partial sums on both kinds of mesh dim.  The
+    neither divides (whisper-base's 8 heads over 16 model ranks):
+
+    - with at least a row a rank, q is split along its rows, each rank
+      reading its rows of the mask, and the rows
+      are gathered again after it (the products around attention stay
+      as they are planned elsewhere).  Where the rows do not divide
+      (1,500 encoder frames over 16 ranks), q is first padded to the
+      next multiple with copies of its last row (and a plain mask's rows
+      read past its end alike), so the blocks stay even (94 rows; the
+      last rank's last 4 are padding), and the padding is cut after the
+      gather: padding,
+      not DTensor's uneven ``Shard``, because a local region gives its
+      outputs the global shape of even blocks;
+    - with fewer (a decode step's one row) but a whole number of ranks a
+      head, each rank takes one head's slice of hd, as GSPMD splits the
+      flat heads x hd: the head's scores whole, its slice of the output
+      (``_own_head_slice``), gathered again after it.
+
+    Neither applies without ``split_rows`` (the chunked schedules, whose
+    loops take whole sequences and heads).
+    k's and v's gradients are Partial sums on each such mesh dim.  The
     output lies as q does.  A mask with a row a sequence takes the
     rows' split.  Without gradients (serving), a cache split along its
     slots stays split: ``_sdpa_split_keys``, with q whole on those mesh
@@ -135,12 +153,19 @@ def sdpa(fn, q, k, v, mask, scale, *, split_rows=True, **kwargs):
         pk = tuple(Replicate() if p == Shard(1) else p for p in pk)
     own = [i for i, (a, b) in enumerate(zip(pk, q.placements))
            if a == Replicate() and b == Shard(2)]
+    Sq, H, hd = q.shape[1:]
     rows, m = [], 1
     for i, p in enumerate(pk):
         if split_rows and p == Replicate() and i not in own and \
-                mesh.size(i) > 1 and q.shape[1] % (m * mesh.size(i)) == 0:
+                mesh.size(i) > 1 and Sq >= m * mesh.size(i):
             rows.append(i)
             m *= mesh.size(i)
+    if Sq % m:  # padded to even blocks
+        q = _resize_rows(q, 1, -(-Sq // m) * m)
+    heads = [] if own or rows or split or not split_rows else [
+        i for i, (a, b) in enumerate(zip(pk, q.placements))
+        if a == b == Replicate() and mesh.size(i) > 1 and
+        mesh.size(i) % H == 0 and hd % (mesh.size(i) // H) == 0][:1]
     pq = tuple(Shard(2) if i in own else Shard(1) if i in rows else
                Replicate() if p == Shard(1) else p for i, p in enumerate(pk))
     fn = partial(fn, scale=scale, **kwargs)
@@ -153,6 +178,12 @@ def sdpa(fn, q, k, v, mask, scale, *, split_rows=True, **kwargs):
         kv_lo, _ = local_block(k, 2, pk)
         G = q.shape[2] // k.shape[2]
         fn = partial(_own_heads, fn, lo=q_lo - kv_lo * G, G=G)
+    po = pq
+    if heads:  # this rank's block of the flat (B, Sq, H * hd)
+        r, c = mesh.size(heads[0]) // H, mesh.get_local_rank(heads[0])
+        fn = partial(_own_head_slice, fn, head=c // r, part=c % r, parts=r,
+                     G=H // k.shape[2])
+        po = tuple(Shard(2) if i in heads else p for i, p in enumerate(pq))
     pm = None  # a plain mask broadcasts over the rows
     if isinstance(mask, DTensor):
         r = mask.ndim - 2  # the mask's query rows
@@ -165,26 +196,65 @@ def sdpa(fn, q, k, v, mask, scale, *, split_rows=True, **kwargs):
         lo, n = local_block(q, 1, pq)
         fn = partial(_own_rows, fn, lo=lo, n=n)
     grads = None
-    if own or rows:
-        pg = tuple(Partial() if i in own or i in rows else p
+    if own or rows or heads:
+        pg = tuple(Partial() if i in own + rows + heads else p
                    for i, p in enumerate(pk))
-        grads = (pq, pg, pg) + (() if mask is None else (pm,))
+        gq = tuple(Partial() if i in heads else p for i, p in enumerate(pq))
+        grads = (gq, pg, pg) + (() if mask is None else (pm,))
     if mask is None:
-        out = local_region(lambda q_, k_, v_: fn(q_, k_, v_, None), pq,
+        out = local_region(lambda q_, k_, v_: fn(q_, k_, v_, None), po,
                            (pq, pk, pk), mesh, grads)(q, k, v)
     else:
-        out = local_region(fn, pq, (pq, pk, pk, pm), mesh, grads)(q, k, v,
+        out = local_region(fn, po, (pq, pk, pk, pm), mesh, grads)(q, k, v,
                                                                   mask)
-    if rows:  # whole rows again, as the output projection expects them
+    if rows or heads:  # whole rows and heads again, as the output
+        # projection expects them
         out = out.redistribute(mesh, tuple(
-            Replicate() if i in rows else p for i, p in enumerate(pq)))
-    return out
+            Replicate() if i in rows + heads else p
+            for i, p in enumerate(po)))
+    if heads:
+        out = out.unflatten(2, (H, hd))
+    return out if out.shape[1] == Sq else _resize_rows(out, 1, Sq)
+
+
+def _rows_to(t, dim: int, n: int):
+    """``t`` with ``n`` rows along ``dim``: cut, or padded with copies of
+    its last row (queries or mask rows like any other, whose results are
+    cut again)."""
+    if n <= t.shape[dim]:
+        return t.narrow(dim, 0, n)
+    size = list(t.shape)
+    size[dim] = n - t.shape[dim]
+    return torch.cat([t, t.narrow(dim, t.shape[dim] - 1, 1).expand(size)],
+                     dim)
+
+
+def _resize_rows(x, dim: int, n: int):
+    """``_rows_to`` on DTensor ``x``, on each rank's block with ``dim``
+    whole."""
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+               for p in x.placements)
+    return local_region(partial(_rows_to, dim=dim, n=n), pl, (pl,),
+                        x.device_mesh)(x)
 
 
 def _own_rows(fn, q, k, v, mask, lo, n):
     """``fn`` on this rank's query rows ``lo`` .. ``lo + n - 1`` of the
-    whole, with its rows of a plain mask that covers every row."""
-    return fn(q, k, v, mask[..., lo:lo + n, :])
+    whole, with its rows of a plain mask that covers every row (past the
+    mask's end, where the rows are padding, copies of its last row)."""
+    return fn(q, k, v, _rows_to(mask, -2, lo + n)[..., lo:, :])
+
+
+def _own_head_slice(fn, q, k, v, mask, head, part, parts, G):
+    """``fn`` on query head ``head`` alone, reading KV head ``head // G``,
+    and part ``part`` of ``parts`` of the values' width: the head's scores
+    over its whole hd, the output's slice -> (B, Sq, hd / parts), this
+    rank's block of the flat (B, Sq, H * hd)."""
+    n = v.shape[-1] // parts
+    kv = head // G
+    out = fn(q[:, :, head:head + 1], k[:, :, kv:kv + 1],
+             v[:, :, kv:kv + 1, part * n:(part + 1) * n], mask)
+    return out.flatten(2)
 
 
 def _own_heads(fn, q, k, v, mask, lo, G):
@@ -272,34 +342,74 @@ def per_sequence(*out_placements):
     return rule
 
 
-def experts(fn, buf, w_gate, w_up, w_down):
-    """The expert products ``fn`` on local blocks, laid out as the
-    reference's constraints pin them: on each mesh dim that splits the
-    buffer's batch the weights are gathered (their FSDP "embed" shard)
-    and their gradients are Partial sums; on one that splits its experts
-    the weights are split alike; on one that splits neither, the weights
-    keep a split of the expert FFN dim, and the output (and the buffer's
-    gradient) is a Partial sum."""
-    pb = keep_shards(buf, (0, 1))
-    rows = [p == Shard(0) for p in pb]
-    by_expert = [p == Shard(1) for p in pb]
-    ffn = [not (r or e) and p == Shard(2)
-           for r, e, p in zip(rows, by_expert, w_gate.placements)]
+# what each kind of mesh dim splits in the expert products: the buffer,
+# w_gate and w_up, the gate and up products g and u, w_down, the output
+_EXPERT_LAYOUT = {
+    "rows": (Shard(0), Replicate(), Shard(0), Replicate(), Shard(0)),
+    "experts": (Shard(1), Shard(0), Shard(1), Shard(0), Shard(1)),
+    "ffn": (Replicate(), Shard(2), Shard(3), Shard(1), Partial()),
+    "embed": (Shard(3), Shard(1), Partial(), Shard(2), Shard(3)),
+    None: (Replicate(),) * 5,
+}
 
-    def weight(ffn_dim):
-        return tuple(Shard(0) if e else Shard(ffn_dim) if f else Replicate()
-                     for e, f in zip(by_expert, ffn))
 
-    def weight_grad(ffn_dim):
-        return tuple(Partial() if r else w
-                     for r, w in zip(rows, weight(ffn_dim)))
+def _expert_kinds(buf, w_gate, w_down) -> list:
+    """The kind of each mesh dim for the expert products (keys of
+    ``_EXPERT_LAYOUT``): "rows" where it splits the buffer's batch,
+    "experts" where it splits its experts; else, as the weights lie
+    there, "ffn" (the expert FFN dim) or "embed" (their FSDP shard of
+    D).  A dim of more than one rank where the weights are whole (the
+    "pod" axis at batch 1) splits the experts, or else the FFN dim,
+    where no other dim splits it: a block of a whole weight is a local
+    slice, where a block across another dim's split would move it."""
+    mesh = buf.device_mesh
+    kinds = []
+    for b, w, d in zip(keep_shards(buf, (0, 1)), w_gate.placements,
+                       w_down.placements):
+        kinds.append("rows" if b == Shard(0) else
+                     "experts" if b == Shard(1) else
+                     "ffn" if w == Shard(2) else
+                     "embed" if w == Shard(1) and d == Shard(2) else None)
+    sizes = {"experts": w_gate.shape[0], "ffn": w_gate.shape[2]}
+    for i, (k, w) in enumerate(zip(kinds, w_gate.placements)):
+        if k is None and w == Replicate() and mesh.size(i) > 1:
+            kinds[i] = next((kind for kind, n in sizes.items()
+                             if kind not in kinds and n % mesh.size(i) == 0),
+                            None)
+    return kinds
 
-    out = tuple(Partial() if f else p for f, p in zip(ffn, pb))
-    return local_region(
-        fn, out, (pb, weight(2), weight(2), weight(1)),
-        buf.device_mesh, (out, weight_grad(2), weight_grad(2),
-                          weight_grad(1)),
-    )(buf, w_gate, w_up, w_down)
+
+def experts(up, down):
+    """A rule for the expert products, ``up`` (buf, w_gate, w_up) -> (g,
+    u) then ``down`` (g, u, w_down) -> out, each on local blocks, laid out
+    as the reference's constraints and GSPMD place them, a mesh dim at a
+    time (``_expert_kinds``): where it splits the buffer's batch, the
+    weights are gathered and their gradients are Partial sums; where it
+    splits the experts, the weights are split alike; where the weights
+    keep a split of the expert FFN dim, so do g and u, and the output
+    (and the buffer's gradient) is a Partial sum; where they keep their
+    FSDP "embed" shard of D (at batch 1), each rank takes its block of
+    the buffer's D columns, g and u are Partial sums, reduced before the
+    SiLU, and the output lies split along D (the buffer's gradient too).
+    An input that is whole where the others are split has a Partial
+    gradient there."""
+    def rule(fn, buf, w_gate, w_up, w_down):
+        mesh = buf.device_mesh
+        kinds = _expert_kinds(buf, w_gate, w_down)
+        pb, pw, pg, pd, out = (tuple(_EXPERT_LAYOUT[k][j] for k in kinds)
+                               for j in range(5))
+
+        def grad(pl):
+            return tuple(Partial() if k and p == Replicate() else p
+                         for k, p in zip(kinds, pl))
+
+        g, u = local_region(up, (pg, pg), (pb, pw, pw), mesh,
+                            (grad(pb), grad(pw), grad(pw)))(buf, w_gate, w_up)
+        pg = tuple(Replicate() if isinstance(p, Partial) else p for p in pg)
+        g, u = g.redistribute(mesh, pg), u.redistribute(mesh, pg)
+        return local_region(down, out, (pg, pg, pd), mesh,
+                            (grad(pg), grad(pg), grad(pd)))(g, u, w_down)
+    return rule
 
 
 def recurrence(fn, h0, a, b):

@@ -154,8 +154,7 @@ def attention_plain(cfg: ModelConfig, p, x, *, causal: bool, window=None,
         kpos = torch.arange(k.shape[1], device=x.device)[None, :]
         mask = _causal_window_mask(positions, kpos, window)[:, None, None]
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
-    out = merge_heads(out)
-    return out @ p["wo"]
+    return merge_heads(out, p["wo"]) @ p["wo"]
 
 
 def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
@@ -194,7 +193,7 @@ def attention_chunked(cfg: ModelConfig, p, x, *, causal: bool, window=None,
     rows = positions if banded and positions.shape[0] == B else None
     out = _chunked_sdpa(q, k, v, rows, 1.0 / math.sqrt(hd), causal=causal,
                         window=window, cq=cq, ck=ck, schedule=schedule)
-    return merge_heads(out) @ p["wo"]
+    return merge_heads(out, p["wo"]) @ p["wo"]
 
 
 @by_rule(partial(partition.sdpa, split_rows=False))
@@ -371,7 +370,7 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
         q = split_dim(q, -1, (cfg.n_heads, hd))
         out = _sdpa(q, cross_kv["k"], cross_kv["v"], None,
                     1.0 / math.sqrt(hd))
-        return merge_heads(out) @ p["wo"], cache
+        return merge_heads(out, p["wo"]) @ p["wo"], cache
     q, k_new, v_new = _project_qkv(cfg, p, x1)
     if cfg.pos_type == "rope":
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -408,7 +407,7 @@ def attention_decode(cfg: ModelConfig, p, x1, cache, pos, *, window=None,
         valid = delta < torch.clamp(pos[:, None] + 1, max=window)
     out = _sdpa(q, k_cache, v_cache, valid[:, None, None, None, :],
                 1.0 / math.sqrt(hd))
-    return merge_heads(out) @ p["wo"], cache
+    return merge_heads(out, p["wo"]) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------
@@ -492,15 +491,25 @@ def _first_choice_counts(topi, E: int):
     return torch.sum(F.one_hot(topi[..., 0], E).float(), dim=(0, 1))
 
 
-@by_rule(partition.experts)
+def _expert_up(buf, w_gate, w_up):
+    """The gate and up products of every expert over its (B, C, D) rows
+    of ``buf`` (B, E, C, D) -> g, u (B, E, C, F)."""
+    return (torch.einsum("becd,edf->becf", buf, w_gate),
+            torch.einsum("becd,edf->becf", buf, w_up))
+
+
+def _expert_down(g, u, w_down):
+    """SiLU(g) * u through each expert's down product -> (B, E, C, D)."""
+    h = F.silu(g.float()).to(g.dtype) * u
+    h = shard_act(h, ("batch", "experts", None, "ffn"))
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+@by_rule(partition.experts(_expert_up, _expert_down))
 def _experts(buf, w_gate, w_up, w_down):
     """Every expert's SwiGLU over its (B, C, D) rows of ``buf`` (B, E, C,
     D): batched products over the experts, in the model type."""
-    g = torch.einsum("becd,edf->becf", buf, w_gate)
-    u = torch.einsum("becd,edf->becf", buf, w_up)
-    h = F.silu(g.float()).to(buf.dtype) * u
-    h = shard_act(h, ("batch", "experts", None, "ffn"))
-    return torch.einsum("becf,efd->becd", h, w_down)
+    return _expert_down(*_expert_up(buf, w_gate, w_up), w_down)
 
 
 def moe_route(cfg: ModelConfig, p, x):
@@ -529,8 +538,10 @@ def moe_ffn_tokens(cfg: ModelConfig, p, x):
     = the batch rows); tokens that overflow an expert's capacity are
     dropped (contribute zero).  The expert products are plain batched
     matmuls over the experts, in the model type.  Partitioned, the
-    buffer is split over the experts' axis, each rank's own slice of a
-    dispatch it computes whole, and gathered whole for the combine.
+    buffer is split over the experts' axis (and, where the batch splits
+    over no mesh dim, over its D columns as the weights' "embed" shard
+    is), each rank's own slice of a dispatch it computes whole, and
+    gathered whole for the combine.
     """
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k

@@ -145,6 +145,37 @@ def test_long_context_smoke_decode_reads_a_cache_split_over_two_axes(
     assert calls == [1 if w else 2 for w in windows]
 
 
+def _share(art):
+    """A device's FLOPs over its share of the whole step's."""
+    return art["cost"]["flops_per_device"] * art["chips"] / art["cost"]["flops"]
+
+
+def test_batch_one_moe_cell_runs_its_share_of_the_experts():
+    """mixtral-8x22b smoke as ``long_500k`` is cut (one sequence, 512
+    slots), its expert FFN widened to 2,048 so that the expert products
+    carry the step, as at full width: the data axis splits neither the
+    batch nor the 4 experts, so each data rank takes its block of the
+    buffer's D columns (``partition.experts``), and a device runs its
+    share of the step (the whole expert products on every data rank
+    read 15.7x)."""
+    cfg = smoke_config("mixtral-8x22b").replace(d_ff=2048)
+    art = dryrun.build_cell("mixtral-8x22b", "long_500k", "pod", cfg=cfg,
+                            shape=ShapeCell("long_500k", 512, 1, "decode"))
+    assert art["ok"] and _share(art) <= 1.10
+
+
+def test_uneven_frame_whisper_cell_runs_its_share_of_the_step():
+    """whisper-base smoke with 40 encoder frames (over 16 model ranks,
+    where its 4 heads do not divide either): q's rows are padded to 48,
+    3 a rank, in the encoder's forward and backward, and a train step's
+    device runs its share of the step (whole encoder attention on every
+    model rank read 2.26x)."""
+    cfg = smoke_config("whisper-base").replace(encoder_len=40)
+    art = dryrun.build_cell("whisper-base", "smoke_train", "pod", cfg=cfg,
+                            shape=ShapeCell("smoke_train", 32, 32, "train"))
+    assert art["ok"] and _share(art) <= 1.10
+
+
 # --------------------------- the meta trace made cheaper, counts equal
 
 
