@@ -21,6 +21,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.kmeans.ops import assign_clusters
+from repro_torch.obs.trace import get_tracer
 from repro_torch.utils.device import resolve_device
 
 Seeder = Callable[[int, np.ndarray, int], np.ndarray]
@@ -58,35 +59,45 @@ def kmeans(seed: int, x, k: int, max_iters: int = 50, tol: float = 1e-4, *,
     Returns tensors on ``device``.
     """
     dev = resolve_device(device)
+    tr = get_tracer()
     x_np = _as_numpy(x)
-    xt = torch.as_tensor(x_np, device=dev)
+    with tr.span("to_device", kind="step", of="x", rows=len(x_np),
+                 bytes=x_np.nbytes):
+        xt = torch.as_tensor(x_np, device=dev)
     d = xt.shape[1]
     seeder = init_centroids if init_centroids is not None else plusplus_init
-    cents = torch.tensor(np.asarray(seeder(seed, x_np, k)), dtype=xt.dtype,
-                         device=dev)
+    with tr.span("kmeans_seed", kind="step", rows=len(x_np)):
+        seeds = np.asarray(seeder(seed, x_np, k))
+    with tr.span("to_device", kind="step", of="centroids", rows=len(seeds),
+                 bytes=seeds.size * xt.element_size()):
+        cents = torch.tensor(seeds, dtype=xt.dtype, device=dev)
     if tuple(cents.shape) != (k, d):
         raise ValueError(f"seeder returned {tuple(cents.shape)}, expected "
                          f"{(k, d)}")
-    it, moving = 0, True
-    while it < max_iters and moving:
+    with tr.span("kmeans_lloyd", kind="step", rows=len(x_np)) as sp:
+        it, moving = 0, True
+        while it < max_iters and moving:
+            assign, dmin = assign_clusters(xt, cents)
+            # per-cluster sums as a product with the one-hot assignment,
+            # not a scatter-add: CUDA's atomic adds land in a varying
+            # order, and the product gives the same centroids on every run
+            onehot = F.one_hot(assign.long(), k).to(xt.dtype)  # (N, k)
+            counts = onehot.sum(dim=0)
+            sums = onehot.T @ xt
+            new = torch.where(counts[:, None] > 0,
+                              sums / torch.clamp(counts[:, None], min=1.0),
+                              cents)
+            # re-seed empties with the worst-fit point
+            worst = torch.argmax(dmin)
+            new = torch.where(counts[:, None] == 0, xt[worst][None, :], new)
+            # max shift compared with tol in x's dtype, as the reference does
+            moving = bool(torch.max(torch.sum((new - cents) ** 2, dim=-1))
+                          > tol)
+            cents = new.contiguous()
+            it += 1
         assign, dmin = assign_clusters(xt, cents)
-        # per-cluster sums as a product with the one-hot assignment, not a
-        # scatter-add: CUDA's atomic adds land in a varying order, and the
-        # product gives the same centroids on every run
-        onehot = F.one_hot(assign.long(), k).to(xt.dtype)  # (N, k)
-        counts = onehot.sum(dim=0)
-        sums = onehot.T @ xt
-        new = torch.where(counts[:, None] > 0,
-                          sums / torch.clamp(counts[:, None], min=1.0), cents)
-        # re-seed empties with the worst-fit point
-        worst = torch.argmax(dmin)
-        new = torch.where(counts[:, None] == 0, xt[worst][None, :], new)
-        # max shift compared with tol in x's dtype, as the reference does
-        moving = bool(torch.max(torch.sum((new - cents) ** 2, dim=-1)) > tol)
-        cents = new.contiguous()
-        it += 1
-    assign, dmin = assign_clusters(xt, cents)
-    inertia = torch.sum(dmin)
+        inertia = torch.sum(dmin)
+        sp.set(iters=it)
     return cents, assign, inertia
 
 

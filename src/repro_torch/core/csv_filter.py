@@ -182,12 +182,19 @@ def _vote_wave(wave: list, labels_by_cluster: list, emb: np.ndarray,
     live = [i for i, cp in enumerate(wave) if len(cp.rest_ids)]
     if not live:
         return {}
-    sim = cfg.vote == "sim"
+    rest = samples = None
+    if cfg.vote == "sim":
+        tr = get_tracer()
+        with tr.span("gather_rows", kind="step") as sp:
+            rest = [emb[wave[i].rest_ids] for i in live]
+            samples = [emb[wave[i].sample_ids] for i in live]
+        if tr.enabled:
+            rows = sum(len(x) for x in rest) + sum(len(x) for x in samples)
+            sp.set(rows=rows, bytes=rows * emb.shape[1] * emb.itemsize)
     votes = vote_clusters(
         cfg.vote, [labels_by_cluster[i] for i in live],
         [len(wave[i].rest_ids) for i in live], lb, ub,
-        emb_unsampled=[emb[wave[i].rest_ids] for i in live] if sim else None,
-        emb_sampled=[emb[wave[i].sample_ids] for i in live] if sim else None,
+        emb_unsampled=rest, emb_sampled=samples,
         bandwidth=cfg.sim_bandwidth, device=device)
     return dict(zip(live, votes))
 
@@ -216,8 +223,11 @@ def _recluster_or_fallback(emb, oracle, cfg, pending, depth, result, decided,
             decided[pending] = True
             sp.set(outcome="small_fallback")
             return [], len(pending), monotonic() - t_rc
+        with tr.span("gather_rows", kind="step", rows=len(pending),
+                     bytes=len(pending) * emb.shape[1] * emb.itemsize):
+            x = emb[pending]
         # the seed the reference passes to jax.random.key
-        _, sub_assign, _ = kmeans(cfg.seed + depth, emb[pending], k,
+        _, sub_assign, _ = kmeans(cfg.seed + depth, x, k,
                                   max_iters=cfg.kmeans_iters,
                                   init_centroids=init_centroids,
                                   device=device)

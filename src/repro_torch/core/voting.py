@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.simvote.ops import (simvote_scores,
                                              simvote_scores_segmented)
+from repro_torch.obs.trace import NULL_SPAN, get_tracer
 from repro_torch.utils.device import resolve_device
 
 
@@ -176,25 +177,46 @@ def sim_vote_batch(emb_unsampled: Sequence[np.ndarray],
     if not live:
         return out  # type: ignore[return-value]
 
+    tr = get_tracer()
     d = emb_unsampled[live[0]].shape[1]
     max_m = max(len(emb_sampled[ci]) for ci in live)
-    s_pad = np.zeros((len(live), max_m, d), np.float32)
-    y_pad = -np.ones((len(live), max_m), np.float32)
-    taus = np.empty(len(live), np.float64)
-    for r, ci in enumerate(live):
-        m_c = len(emb_sampled[ci])
-        s_pad[r, :m_c] = emb_sampled[ci]
-        y_pad[r, :m_c] = sample_labels[ci]
-        taus[r] = bandwidth or default_bandwidth(np.asarray(emb_sampled[ci]))
-    if isinstance(emb_unsampled[live[0]], torch.Tensor):
-        x_all = torch.cat([emb_unsampled[ci].to(dev, torch.float32)
-                           for ci in live])
-    else:
-        x_all = _f32(np.concatenate([np.asarray(emb_unsampled[ci], np.float32)
-                                     for ci in live]), dev)
+    on_device = isinstance(emb_unsampled[live[0]], torch.Tensor)
+    with tr.span("vote_pack", kind="step") as sp:
+        s_pad = np.zeros((len(live), max_m, d), np.float32)
+        y_pad = -np.ones((len(live), max_m), np.float32)
+        taus = np.empty(len(live), np.float64)
+        for r, ci in enumerate(live):
+            m_c = len(emb_sampled[ci])
+            s_pad[r, :m_c] = emb_sampled[ci]
+            y_pad[r, :m_c] = sample_labels[ci]
+            taus[r] = bandwidth or default_bandwidth(
+                np.asarray(emb_sampled[ci]))
+        if not on_device:
+            x_np = np.concatenate([np.asarray(emb_unsampled[ci], np.float32)
+                                   for ci in live])
+    copy = NULL_SPAN
+    if tr.enabled:
+        # the rows come from the host; a tensor already on the device is
+        # concatenated there and moves nothing
+        host = [x for x in (emb_unsampled[ci] for ci in live)
+                if x.device != dev] if on_device else []
+        x_rows = sum(len(x) for x in host) if on_device else len(x_np)
+        x_bytes = (sum(x.numel() * x.element_size() for x in host)
+                   if on_device else x_np.nbytes)
+        padded = s_pad.nbytes + y_pad.nbytes
+        sp.set(rows=int(counts[live].sum())
+               + sum(len(emb_sampled[ci]) for ci in live),
+               bytes=(0 if on_device else x_np.nbytes) + padded)
+        copy = tr.span("to_device", kind="step", of="vote", rows=x_rows,
+                       samples=s_pad.shape[0] * max_m,
+                       bytes=x_bytes + padded)
+    with copy:
+        x_all = (torch.cat([emb_unsampled[ci].to(dev, torch.float32)
+                            for ci in live]) if on_device
+                 else _f32(x_np, dev))
+        s_dev, y_dev = _f32(s_pad, dev), _f32(y_pad, dev)
     scores_all = simvote_scores_segmented(
-        x_all, counts[live], _f32(s_pad, dev), _f32(y_pad, dev),
-        taus).cpu().numpy()
+        x_all, counts[live], s_dev, y_dev, taus).cpu().numpy()
     stop = np.cumsum(counts[live])
     for r, ci in enumerate(live):
         seg = scores_all[stop[r] - counts[ci]:stop[r]]

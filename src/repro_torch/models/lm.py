@@ -37,6 +37,7 @@ from repro_torch.distributed.api import shard_act, split_dim
 from repro_torch.distributed.partition import by_rule
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.obs.trace import get_tracer
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map_with_path_str
 
@@ -356,22 +357,30 @@ def _inputs(cfg: ModelConfig, params, tokens, prefix_embeds, enc_frames):
 
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
-                 enc_out=None, entry=None, max_len=None):
+                 enc_out=None, entry=None, max_len=None, index=None):
     """One layer, full-sequence mode -> (h, aux): aux is the MoE FFN's
     load-balance loss, None for other layers.  With ``entry`` (prefill)
     the layer's decode cache goes into that dict: post-RoPE K/V folded to
     the ring (``max_len`` for a global layer), Mamba's final state and
-    conv window, and an encoder-decoder's static cross-attention K/V."""
+    conv window, and an encoder-decoder's static cross-attention K/V.
+    The mixer and the FFN each run in a span of kind "layer" named by
+    their kind (``attn``, ``mamba``, ``mlp``, ``moe``), with ``index``,
+    the layer's place in its superblock, as its ``layer``; norms and
+    residual adds stay outside them."""
+    tr = get_tracer()
     aux = None
     hn = L.apply_norm(cfg, p["norm"], h)
     if spec.kind == "attn":
-        if entry is not None:
-            entry["k"], entry["v"] = _project_kv_cache(
-                cfg, p["attn"], hn, positions, _ring_len(cfg, spec, max_len))
-        out = L.attention_apply(cfg, p["attn"], hn, causal=True,
-                                window=spec.window, positions=positions)
+        with tr.span("attn", kind="layer", layer=index):
+            if entry is not None:
+                entry["k"], entry["v"] = _project_kv_cache(
+                    cfg, p["attn"], hn, positions,
+                    _ring_len(cfg, spec, max_len))
+            out = L.attention_apply(cfg, p["attn"], hn, causal=True,
+                                    window=spec.window, positions=positions)
     else:
-        out, (state, conv) = L.mamba_scan(cfg, p["mamba"], hn)
+        with tr.span("mamba", kind="layer", layer=index):
+            out, (state, conv) = L.mamba_scan(cfg, p["mamba"], hn)
         if entry is not None:
             entry["h"], entry["conv"] = state, conv
     h = _residual(h, out)
@@ -385,10 +394,13 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p, h, positions,
             entry["xv"] = split_dim(enc_out @ p["xattn"]["wv"], -1, heads)
     if spec.ffn == "dense":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
-        h = _residual(h, L.apply_mlp(cfg, p["ffn"], hf))
+        with tr.span("mlp", kind="layer", layer=index):
+            out = L.apply_mlp(cfg, p["ffn"], hf)
+        h = _residual(h, out)
     elif spec.ffn == "moe":
         hf = L.apply_norm(cfg, p["ffn_norm"], h)
-        out, aux = L.apply_moe(cfg, p["moe"], hf)
+        with tr.span("moe", kind="layer", layer=index):
+            out, aux = L.apply_moe(cfg, p["moe"], hf)
         h = _residual(h, out)
     return h, aux
 
@@ -423,7 +435,7 @@ def _superblock_fwd(cfg: ModelConfig, sb, h, positions, enc_out,
     for i, spec in enumerate(cfg.pattern):
         entry = None if sb_cache is None else sb_cache.setdefault(f"l{i}", {})
         h, a = _apply_layer(cfg, spec, sb[f"l{i}"], h, positions, enc_out,
-                            entry, max_len)
+                            entry, max_len, i)
         if a is not None:
             aux = aux + a
     return h, aux

@@ -12,6 +12,13 @@ One query produces one span tree —
     dispatch_wave              QueryScheduler._run_wave (cross-query merge;
                                parented to the requesting oracle span)
       engine_tick              ServingEngine per bucketed device batch
+        attn|mamba|moe|mlp     one layer of that kind (kind "layer")
+
+The port adds leaves of its own (``PORT_ONLY_KINDS``), which the JAX
+reference does not open: the driver's host steps (kind ``"step"``:
+``gather_rows``, ``vote_pack``, ``to_device`` under ``vote`` and
+``partition``; ``kmeans_seed`` and ``kmeans_lloyd`` wherever k-means
+runs) and the model's layer kinds above.
 
 Span ids are stable small integers assigned in creation order under one
 lock, so a deterministic run yields a deterministic id assignment.  The
@@ -37,8 +44,14 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from repro_torch.utils.timing import monotonic
+
+# span kinds the port opens and the JAX reference does not: the parity
+# tests leave out exactly these before comparing span trees
+PORT_ONLY_KINDS = ("step", "layer")
 
 _current: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_obs_current_span", default=None)
@@ -201,6 +214,57 @@ class Tracer:
     def export_perfetto(self, path) -> int:
         from repro_torch.obs.export import write_perfetto
         return write_perfetto(self.spans(), path, epoch_mono=self.epoch_mono)
+
+
+# ------------------------------------------------------------- clock anchor
+def clock_anchor(tries: int = 5) -> tuple:
+    """(``perf_counter_ns``, ``time_ns``) read back to back: the narrowest
+    of ``tries`` reads, the monotonic reading taken at the middle of the
+    pair's bracket."""
+    best = None
+    for _ in range(tries):
+        a = time.perf_counter_ns()
+        w = time.time_ns()  # the unix-epoch clock torch.profiler stamps on
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, w)
+    return best[1], best[2]
+
+
+IMPORT_ANCHOR = clock_anchor()
+
+
+def epoch_ns(t):
+    """A ``monotonic()`` reading (seconds; a scalar or a numpy array) on
+    the unix-epoch nanosecond clock that ``torch.profiler`` stamps its
+    events on.  Interpolates linearly between the anchor taken at import
+    and one taken now, so the two clocks' slew in between is taken out.
+
+    To overlay a run's spans on its device trace::
+
+        tr = Tracer()
+        with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
+            with use_tracer(tr):
+                query.collect()
+        events = prof.profiler.kineto_results.events()
+        spans = [(s.name, epoch_ns(s.t0), epoch_ns(s.t1))
+                 for s in tr.spans()]
+
+    A kernel (an event of device type CUDA that is not a mirror of a
+    ``record_function`` range, ``is_user_annotation()``) shares its
+    ``correlation_id()`` with the host call that launched it, the host
+    event named ``cu*`` (``cudaLaunchKernel``, ``cuLaunchKernel``, ...;
+    CPU operators number their own correlation ids, which can collide,
+    and the events carry no activity type to tell them apart).  That
+    launch's ``start_ns()`` lies inside the span that launched the kernel:
+    ``bench/benchkit/attribution.py`` sums device time by layer kind so.
+    """
+    m0, w0 = IMPORT_ANCHOR
+    m1, w1 = clock_anchor()
+    rate = (w1 - w0) / (m1 - m0) if m1 > m0 else 1.0
+    d = np.rint((np.asarray(t, np.float64) * 1e9 - m0) * rate)
+    out = w0 + d.astype(np.int64)  # int64 keeps the epoch's nanoseconds
+    return int(out) if out.ndim == 0 else out
 
 
 # ------------------------------------------------------------ active tracer

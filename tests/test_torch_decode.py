@@ -334,7 +334,7 @@ def test_generate_greedy_streams_match_reference(jx, arch, impl):
 def test_generate_metrics_and_span_match_reference(jx):
     from repro.obs.trace import Tracer as JTracer
     from repro.obs.trace import use_tracer as juse
-    from repro_torch.obs.trace import Tracer, use_tracer
+    from repro_torch.obs.trace import PORT_ONLY_KINDS, Tracer, use_tracer
     jcfg, jparams, tcfg, tparams = _pair(jx, "llama3.1-8b", "flash")
     prompts = _prompts(5, seed=1)
     jtr, ttr = JTracer(), Tracer()
@@ -343,7 +343,8 @@ def test_generate_metrics_and_span_match_reference(jx):
     with use_tracer(ttr):
         ServingEngine(tcfg, tparams, max_batch=4, device="cpu").generate(
             prompts, max_new=3)
-    spans = [[(s.kind, s.attrs) for s in tr.spans()] for tr in (jtr, ttr)]
+    spans = [[(s.kind, s.attrs) for s in tr.spans()
+              if s.kind not in PORT_ONLY_KINDS] for tr in (jtr, ttr)]
     assert spans[0] == spans[1]
     assert all(a["phase"] == "generate" for _, a in spans[1])
     assert ttr.metrics.snapshot() == jtr.metrics.snapshot()

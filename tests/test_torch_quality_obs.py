@@ -36,6 +36,7 @@ from repro_torch.obs import (FlightRecorder, HealthMonitor, MetricsRegistry,
                              set_monitor, spans_to_perfetto,
                              start_status_server, use_tracer,
                              write_run_profile)
+from repro_torch.obs.trace import PORT_ONLY_KINDS
 
 N = 600
 _plusplus = jax.jit(jc._plusplus_init, static_argnums=2)
@@ -101,6 +102,12 @@ def _chain(s, by_id):
     return tuple(reversed(kinds))
 
 
+def _shared(spans):
+    """The spans the reference opens too: all but the port's own leaves
+    (``PORT_ONLY_KINDS``)."""
+    return [s for s in spans if s.kind not in PORT_ONLY_KINDS]
+
+
 def _tree_kinds(spans):
     """Every span as the kinds from its root down, sorted (threads make
     the creation order differ between runs)."""
@@ -150,7 +157,22 @@ def test_spans_nest_query_to_dispatch_wave(traced):
                                     "dispatch_wave")
     assert all("n_sampled" in r.attrs for r in spans if r.kind == "round")
     # the same span tree as the reference's traced run
-    assert _tree_kinds(spans) == _tree_kinds(traced["ref"][0].spans())
+    assert _tree_kinds(_shared(spans)) == _tree_kinds(
+        traced["ref"][0].spans())
+
+
+def test_parity_filter_leaves_out_only_the_ports_own_leaves(traced):
+    """What the parity tests leave out: only spans of the port's own
+    kinds, each a leaf, so every span the reference opens is compared."""
+    spans = traced["port"][0].spans()
+    kept = _shared(spans)
+    dropped = [s for s in spans if s.kind in PORT_ONLY_KINDS]
+    assert PORT_ONLY_KINDS == ("step", "layer")
+    assert dropped and len(kept) + len(dropped) == len(spans)
+    assert {s.kind for s in kept} == {s.kind for s in spans} - {"step"}
+    gone = {s.span_id for s in dropped}
+    assert not any(s.parent_id in gone for s in spans)
+    assert len(kept) == len(traced["ref"][0].spans())
 
 
 def test_metrics_registry_unified_names(traced):
@@ -412,7 +434,7 @@ def _traced_filter(side, ds, shards):
             res = semantic_filter(ds.embeddings, oracle, CSVConfig(
                 n_clusters=4, xi=0.005, vote="sim", shards=shards),
                 init_centroids=jax_seeder, device="cpu")
-    spans = [(s.kind, s.name, sorted(s.attrs)) for s in tr.spans()]
+    spans = [(s.kind, s.name, sorted(s.attrs)) for s in _shared(tr.spans())]
     gathers = [dict(s.attrs) for s in tr.spans() if s.kind == "gather"]
     return res, spans, gathers, _metric_counts(reg.snapshot())
 
