@@ -7,10 +7,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. build    nvcc builds every kernel from src/repro_torch/csrc into build/.
 2. kernels  each CUDA kernel (K1 k-means assignment, K2/K3 SimVote, K4
-            flash prefill, K5 flash decoding) against its plain PyTorch
-            version on the card at the main path's shapes (K1 also at the
-            model path's n 4,096, at K 33 and at D 1,023; K3 also at M
-            300), with its time,
+            flash prefill, K5 flash decoding, K6 Mamba's selective scan)
+            against its plain PyTorch version on the card at the main
+            path's shapes (K1 also at the model path's n 4,096, at K 33
+            and at D 1,023; K3 also at M 300; K6 also at S 1, 17 and 300
+            from a given state; K6's bound is the larger of its bytes and
+            its exponentials at the SFU's rate), with its time,
             the plain version's time, a library yardstick where one exists
             and the card's least time for the same work (its bound).  The
             times are device time a call, 20 calls between one event pair
@@ -188,11 +190,12 @@ K3, and K1 where a node it runs again re-clusters; stream: K1, K3;
 stream_tail: K1, K3 in the tail and none in the restore; stream_engine:
 K1, K3 and K4 = 32 x batches; watch_cli: K1 (UniVote); serve_cli: K1
 and K4 = the smoke config's layers x batches, none on the replay;
-zoo_model: K1, K3 and K4 = 2 x batches (jamba's two attention layers);
-zoo_generate: K4 = 2 x batches and K5 = 2 x decode steps; zoo_whisper:
+zoo_model: K1, K3, K4 = 2 x batches (jamba's two attention layers) and
+K6 = 14 x batches (its Mamba layers' prefill scans); zoo_generate: K4 =
+2 x batches, K5 = 2 x decode steps and K6 = 14 x batches; zoo_whisper:
 K4 = 6 and K5 = 6 x 16; zoo_vlm: K4 = 2; train, train_resume,
 sharded_train and sharded_resume: none, as no kernel has a backward and
-K4 and K5 refuse DTensors).
+K4, K5 and K6 refuse DTensors).
 Phase 8 must launch
 none.  Checks against plain versions, the join's profiled repeat and
 phase 9's serial, synthetic and state-building runs run outside those
@@ -225,6 +228,7 @@ ENC_MAX_LEN = 128          # encode phase: tokens a chunk
 ENC_CPU_LIMIT = 1e-5       # smoke encoder, card against CPU, f32
 CHUNK_S = 4096             # chunked phase: the prompt gemma3-12b prefills
 CHUNK_LIMIT = 0.25         # chunked schedules' bf16 logits against plain
+SFU_EXP_S = 16 * 132 * 1.98e9  # exponentials a second: 16 a clock an SM
 
 
 def log(*args):
@@ -1449,6 +1453,7 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
     torch.cuda.synchronize()
     n_attn = cfg.n_superblocks * sum(s.kind == "attn" for s in cfg.pattern)
     n_moe = cfg.n_superblocks * sum(s.ffn == "moe" for s in cfg.pattern)
+    n_mamba = cfg.n_layers - n_attn
     weights_gib = torch.cuda.memory_allocated() / 2**30 - left
     log(f"[zoo] {cfg.name}: {cfg.n_layers} of {base.n_layers} layers "
         f"({n_attn} attention, {cfg.n_layers - n_attn} Mamba, {n_moe} MoE of "
@@ -1465,7 +1470,8 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
         res = counted("zoo_model", lambda: semantic_filter(
             mds.embeddings, oracle, CSVConfig(n_clusters=4, vote="sim"),
             device=dev),
-            {"kmeans_assign", "simvote_scores_segmented", "flash_attention"})
+            {"kmeans_assign", "simvote_scores_segmented", "flash_attention",
+             "selective_scan"})
     wall = monotonic() - t0
     engine_s = sum(sp.duration_s for sp in tracer.spans()
                    if sp.kind == "engine_tick")
@@ -1484,10 +1490,17 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
         f"[{smi}]")
     if res.n_llm_calls + res.n_voted != len(mds.texts):
         raise AssertionError("calls + votes do not cover the table")
-    if by_path["zoo_model"]["flash_attention"] != n_attn * st["batches"]:
-        raise AssertionError(
-            f"flash launches {by_path['zoo_model']['flash_attention']} != "
-            f"{n_attn} x {st['batches']} batches")
+    for name, n in (("flash_attention", n_attn), ("selective_scan", n_mamba)):
+        if by_path["zoo_model"][name] != n * st["batches"]:
+            raise AssertionError(
+                f"{name} launches {by_path['zoo_model'][name]} != {n} x "
+                f"{st['batches']} batches")
+    routes = [tracer.metrics.snapshot().get(f"mamba.scan_{r}", 0)
+              for r in ("kernel", "plain")]
+    log(f"[zoo] Mamba scan routes: kernel {routes[0]}, plain {routes[1]} "
+        f"({n_mamba} Mamba layers x {st['batches']} batches)")
+    if routes != [n_mamba * st["batches"], 0]:
+        raise AssertionError(f"Mamba scan routes {routes}")
     check_k4([(b, cfg.n_heads, cfg.n_kv_heads, s, cfg.resolved_head_dim)
               for b, s in served], "jamba prefill")
 
@@ -1497,7 +1510,7 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
     with use_tracer(tracer):
         streams = counted("zoo_generate", lambda: engine.generate(
             gen_prompts, max_new=MAX_NEW),
-            {"flash_attention", "decode_attention"})
+            {"flash_attention", "decode_attention", "selective_scan"})
     ticks = [sp for sp in tracer.spans()
              if sp.kind == "engine_tick" and sp.attrs["phase"] == "generate"]
     gen_s = sum(sp.duration_s for sp in ticks)
@@ -1513,10 +1526,12 @@ def phase_zoo(mds, counted, by_path, log, smi, dev="cuda"):
             not all(0 <= t < cfg.padded_vocab for s in streams for t in s):
         raise AssertionError("generate returned malformed streams")
     if launches["flash_attention"] != n_attn * len(ticks) or \
-            launches["decode_attention"] != n_attn * len(ticks) * MAX_NEW:
+            launches["decode_attention"] != n_attn * len(ticks) * MAX_NEW \
+            or launches["selective_scan"] != n_mamba * len(ticks):
         raise AssertionError(
-            f"generate launched K4 {launches['flash_attention']} and K5 "
-            f"{launches['decode_attention']} times over {len(ticks)} batches")
+            f"generate launched K4 {launches['flash_attention']}, K5 "
+            f"{launches['decode_attention']} and K6 "
+            f"{launches['selective_scan']} times over {len(ticks)} batches")
     check_k5([(b, cfg.n_heads, cfg.n_kv_heads, s + 64, cfg.resolved_head_dim)
               for b, s in gen_served], "jamba decode")
 
@@ -2335,6 +2350,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.kmeans.kernel import assign_clusters_cuda
     from repro_torch.kernels.kmeans.ref import assign_clusters_ref
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.kernels.simvote.kernel import (
         simvote_scores_cuda, simvote_scores_segmented_cuda)
     from repro_torch.kernels.simvote.ref import (simvote_scores_ref,
@@ -2372,7 +2389,8 @@ def main() -> int:
                 "simvote_scores": simvote_scores_cuda,
                 "simvote_scores_segmented": simvote_scores_segmented_cuda,
                 "flash_attention": flash_attention_cuda,
-                "decode_attention": decode_attention_cuda}
+                "decode_attention": decode_attention_cuda,
+                "selective_scan": selective_scan_cuda}
     record = {
         "kmeans_assign": {
             "source": "src/repro_torch/csrc/kmeans_assign.cu",
@@ -2389,6 +2407,9 @@ def main() -> int:
         "decode_attention": {
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:62"},
+        "selective_scan": {
+            "source": "src/repro_torch/csrc/selective_scan.cu",
+            "replaces": None},
     }
 
     def note(name, err, bnd, kernel, plain, sets, cuda_name, library=None,
@@ -2636,6 +2657,62 @@ def main() -> int:
          lambda q, k, v, mask: sdpa(q, k, v, attn_mask=mask, enable_gqa=True),
          lib_sets)
     del x, xs, s_pad, y_pad, q, kk, v, o1, o2, dargs, sets, lib_sets
+
+    # K6 at jamba-v0.1-52b's prefill in the engine: B 64, S 32 (the
+    # 32-token bucket), d_inner 8,192, d_state 16; x and z bf16, dt =
+    # softplus(N(0, 1) - 4.6) (dt_bias -4.6), A_log = log(1..16), B and C
+    # views of one product as the gates split it; also S 1, 17 and 300 from
+    # a given state.  The plain version is the model's recurrence before
+    # K6 (``selective_scan_ref``, the 32 steps as one chunk)
+    def scan_inputs(S_, h0=False, b_=64, di=8192):
+        f = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        dbc = f(b_, S_, 48)
+        A = -torch.arange(1, 17, dtype=torch.float32, device=dev)
+        return (torch.nn.functional.silu(f(b_, S_, di)).to(torch.bfloat16),
+                torch.nn.functional.softplus(f(b_, S_, di) - 4.6),
+                dbc[..., 16:32], dbc[..., 32:], f(b_, S_, di).to(
+                    torch.bfloat16), A.expand(di, 16).contiguous(),
+                1 + 0.1 * f(di), f(b_, di, 16) if h0 else None)
+
+    def scan_check(args, chunk=None):
+        """K6 against the plain version: h_last within 1e-5 (relative,
+        and of the state's scale near 0), y within a bf16 unit, or where
+        the read-out cancels near 0 within its float32 rounding (2^-20 of
+        the largest output)."""
+        y1, h1 = selective_scan_cuda(*args)
+        y2, h2 = selective_scan_ref(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h1, h2, rtol=1e-5,
+                                   atol=1e-5 * h2.abs().max().item())
+        ulp = torch.ldexp(torch.ones_like(y2, dtype=torch.float32),
+                          torch.frexp(y2.float().abs().maximum(
+                              y1.float().abs()))[1] - 8).clamp(
+            min=2.0 ** -20 * y2.float().abs().max().item())
+        diff = (y1.float() - y2.float()).abs()
+        if not (diff <= ulp).all():
+            raise AssertionError(f"K6 y off by more than its tolerance: "
+                                 f"{(diff / ulp).max().item():.2f} units")
+        return diff.max().item(), (h1 - h2).abs().max().item()
+
+    for S_ in (1, 17, 300):
+        errs = scan_check(scan_inputs(S_, h0=True), chunk=64)
+        log(f"[kernels] selective_scan S={S_} from a given state: y max abs "
+            f"err {errs[0]:.3g} (within its tolerance), h_last {errs[1]:.3g}")
+    sets = [scan_inputs(32) for _ in range(2)]  # 2 x 0.2 GB against the L2
+    y_err, h_err = scan_check(sets[0])
+    Bs, Ss, di = sets[0][0].shape
+    elems = Bs * Ss * di
+    # dt f32, x and z bf16 read, y bf16 and h_last f32 written, B, C, A, D
+    scan_bytes = elems * (4 + 3 * 2) + Bs * di * 16 * 4 + \
+        2 * Bs * Ss * 16 * 4 + di * 17 * 4
+    scan_exps = elems * 17  # 16 decays and the gate's silu an element
+    note("selective_scan", y_err,
+         max((scan_bytes / HBM_BYTES_S * 1e3, "bytes"),
+             (scan_exps / SFU_EXP_S * 1e3, "exponentials")),
+         selective_scan_cuda, selective_scan_ref, sets,
+         "selective_scan_kernel")
+    record["selective_scan"]["h_last_max_abs_err"] = h_err
+    del sets
 
     by_path = {}
 

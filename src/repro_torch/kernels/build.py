@@ -37,6 +37,8 @@ SIGNATURES = {
     "simvote_segmented": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, LLP, P],
     "decode_attention_fwd": [P, P, P, P, P, I, I, I, I, I, LL, LL, LL, I, P],
+    "selective_scan_fwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, LL, LL, I,
+                           P],
 }
 
 
@@ -145,17 +147,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {text} ({err})")
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+def refuse_grad(name: str, *tensors: torch.Tensor,
+                instead: str = 'differentiate through attn_impl="flash-ref" '
+                '(or "auto"/"plain"), or call it under torch.no_grad()'
+                ) -> None:
     """Raise where autograd would differentiate through a kernel that has
-    no backward (K4 and K5, as the reference's Pallas kernels have no JVP
+    no backward (K4, K5 and K6; the reference's Pallas kernels have no JVP
     rule): grad mode is on and an input requires grad.  The output of a
     ctypes launch carries no ``grad_fn``, so without this check the
-    gradients upstream of the kernel would silently be zero."""
+    gradients upstream of the kernel would silently be zero.  ``instead``
+    says what the caller should do."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward; differentiate through "
-            'attn_impl="flash-ref" (or "auto"/"plain"), or call it under '
-            "torch.no_grad()")
+        raise RuntimeError(f"{name} has no backward; {instead}")
 
 
 def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:

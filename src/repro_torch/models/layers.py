@@ -16,9 +16,12 @@ the masked rectangle) as loops over q/kv chunks with an online softmax in
 float32.  ``attention_decode`` is the decode step's attention: global
 layers on the flash-decoding kernel (``attn_impl="flash"``),
 sliding-window ring buffers and cross-attention in plain torch.  MoE
-(token-choice top-k with capacity-bounded per-sequence dispatch) and
-Mamba-1 (a selective scan) are plain torch, as the reference's are plain
-``jnp``/``lax``: no kernel of the port runs in them.
+(token-choice top-k with capacity-bounded per-sequence dispatch) is plain
+torch, as the reference's is plain ``jnp``.  Mamba-1's prefill scan runs
+on the hand-written selective-scan kernel (K6) where it can (a CUDA
+tensor, no autograd, no mesh), and on its plain chunked recurrence
+elsewhere; the rest of Mamba (projections, conv, gates, the decode step)
+is plain torch.
 """
 from __future__ import annotations
 
@@ -27,13 +30,16 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import partition
 from repro_torch.distributed.api import merge_heads, shard_act, split_dim
 from repro_torch.distributed.partition import by_rule
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.launch.op_cost import replayed
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import get_tracer
 
 # --------------------------------------------------------------------------
 # norms
@@ -609,80 +615,27 @@ def _mamba_gates(cfg, p, xr):
     return dt, Bc, Cc                      # (B,S,di), (B,S,ds), (B,S,ds)
 
 
-class _Recurrence(torch.autograd.Function):
-    """h_t = a_t h_{t-1} + b_t along axis 1 from h0 -> every h_t, written
-    over ``b`` in place (one ``addcmul_`` a position; ``b`` is a
-    temporary of the caller's).  Autograd cannot differentiate those
-    writes, so the backward is written here: with G_t the loss's
-    gradient with respect to h_t through every later step, G_t = g_t +
-    a_{t+1} G_{t+1}, and the inputs' gradients are G_t (b_t),
-    G_t h_{t-1} (a_t) and a_0 G_0 (h0)."""
-
-    @staticmethod
-    def forward(ctx, h0, a, b):
-        b[:, 0].addcmul_(a[:, 0], h0)
-        _carry(b, a[:, 1:], reverse=False)
-        ctx.mark_dirty(b)
-        ctx.save_for_backward(h0, a, b)
-        return b
-
-    @staticmethod
-    def backward(ctx, g):
-        h0, a, hs = ctx.saved_tensors
-        G = g.clone(memory_format=torch.contiguous_format)
-        _carry(G, a[:, 1:], reverse=True)
-        prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
-        return a[:, 0] * G[:, 0], G * prev, G
-
-
-def _carry(x, c, reverse: bool, stepwise=None) -> None:
-    """In place, one position after another along axis 1 (T positions):
-    x[:, t] += c[:, t - 1] * x[:, t - 1] for t = 1 .. T - 1, or with
-    ``reverse`` x[:, t] += c[:, t] * x[:, t + 1] for t = T - 2 .. 0
-    (``c`` has T - 1 positions).  A meta tensor (the dry run) has no
-    values to carry, so there one operation over every position stands
-    in for the loop (unless ``stepwise``): it reads, multiplies and
-    writes the same elements, so ``launch.op_cost`` counts the same
-    FLOPs, bytes and peak, without the loop's T operations a chunk."""
-    if stepwise is None:
-        stepwise = not x.is_meta
-    if not stepwise:
-        dst, src = (x[:, :-1], x[:, 1:]) if reverse else (x[:, 1:], x[:, :-1])
-        dst.addcmul_(c, src)
-        return
-    for t in (range(x.shape[1] - 2, -1, -1) if reverse
-              else range(1, x.shape[1])):
-        s = t + 1 if reverse else t - 1
-        x[:, t].addcmul_(c[:, min(s, t)], x[:, s])
-
-
-@by_rule(partition.recurrence)
-def _recurrence(h0, a, b):
-    return _Recurrence.apply(h0, a, b)
-
-
-def _ssm_chunk(h, dt_c, B_c, C_c, x_c, A, Dp):
-    """One chunk of the selective scan, carried from state h (B,di,ds).
-
-    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t, stepped over the chunk in
-    place of the reference's associative scan (the same recurrence; the
-    float order differs) by ``_Recurrence``, which differentiates it.
-    The chunk's (B, c, di, ds) decay and input tensors are its transient
-    memory.  Returns (h_final, y (B,c,di)).
-    """
-    a = torch.exp(dt_c[..., None] * A)                       # (B,c,di,ds)
-    b = (dt_c * x_c)[..., None] * B_c[:, :, None, :]
-    hs = _recurrence(h, a, b)
-    y = torch.einsum("bcds,bcs->bcd", hs, C_c) + Dp * x_c
-    return hs[:, -1].clone(), y
+def _scan_takes_the_kernel(*tensors) -> bool:
+    """Whether ``mamba_scan`` runs its scan through K6's op
+    (``kernels.selective_scan.ops``: the kernel on a CUDA tensor, its
+    plain version on a CPU one).  The layer's chunked recurrence
+    (``selective_scan_ref`` with its backward, its partition rule and its
+    meta stand-in) takes the rest: a DTensor (the partitioned program), a
+    meta tensor (the dry run) and autograd recording (training; K6 has no
+    backward)."""
+    return not (any(isinstance(t, DTensor) or t.is_meta for t in tensors)
+                or (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in tensors)))
 
 
 def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
     """Full-sequence Mamba: x (B,S,D) -> (y (B,S,D), (h_final, conv_state)).
 
-    Chunked along S (``cfg.ssm_chunk``): a recurrence within each chunk in
-    float32, carried across chunks, so ``ssm_chunk`` bounds the
-    (B, chunk, d_inner, ssm_state) intermediates as the reference's does.
+    The selective scan runs on K6 where ``_scan_takes_the_kernel``, else
+    on the chunked recurrence (``cfg.ssm_chunk`` positions a chunk, which
+    bound the (B, chunk, d_inner, ssm_state) intermediates as the
+    reference's does); each call adds one to the tracer's counter
+    ``mamba.scan_kernel`` or ``mamba.scan_plain``, by the route taken.
     """
     B, S, D = x.shape
     di, dc = cfg.d_inner, cfg.ssm_conv
@@ -701,23 +654,19 @@ def mamba_scan(cfg: ModelConfig, p, x, h0=None, conv0=None):
     dt, Bc, Cc = _mamba_gates(cfg, p, xc)
     dt = shard_act(dt, ("batch", None, "inner"))
     A = -torch.exp(p["A_log"])                         # (di, ds)
-    ck = min(cfg.ssm_chunk, S)
-    xcf = xc.float()
-    h = (torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
-                     device=x.device) if h0 is None else h0)
-    # as the reference's remat_inner: where autograd records, each chunk's
-    # (B, chunk, di, ds) stacks are recomputed in the backward, not kept
-    inner = cfg.remat_inner and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (dt, Bc, Cc, xcf, A, h))
-    ys = []
-    for lo in range(0, S, ck):  # full chunks, then the tail
-        sl = slice(lo, min(lo + ck, S))
-        args = (h, dt[:, sl], Bc[:, sl], Cc[:, sl], xcf[:, sl], A, p["D"])
-        h, y = (checkpoint(_ssm_chunk, *args, use_reentrant=False) if inner
-                else _ssm_chunk(*args))
-        ys.append(y)
-    y = shard_act(torch.cat(ys, dim=1), ("batch", None, "inner"))
-    y = (y * F.silu(z.float())).to(x.dtype)
+    args = (xc, dt, Bc, Cc, z, A, p["D"])
+    given = args if h0 is None else (*args, h0)
+    if _scan_takes_the_kernel(*given):
+        get_tracer().metrics.inc("mamba.scan_kernel")
+        y, h = selective_scan(*args, h0, chunk=cfg.ssm_chunk)
+    else:
+        get_tracer().metrics.inc("mamba.scan_plain")
+        # as the reference's remat_inner: where autograd records, each
+        # chunk's (B, chunk, di, ds) stacks are recomputed in the backward
+        remat = cfg.remat_inner and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dt, Bc, Cc, A, *given[7:]))
+        y, h = selective_scan_ref(*args, h0, chunk=cfg.ssm_chunk,
+                                  remat=remat)
     return y @ p["out_proj"], (h, conv_state)
 
 

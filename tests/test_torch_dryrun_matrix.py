@@ -212,10 +212,10 @@ def test_replayed_chunk_blocks_count_what_every_block_counts(schedule):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_recurrence_on_meta_counts_what_its_loop_counts(reverse):
-    """The Mamba recurrence's carry (``layers._carry``) on meta tensors:
-    one operation over every position counts the loop's FLOPs, bytes
-    and peak."""
-    from repro_torch.models.layers import _carry
+    """The Mamba recurrence's carry (``selective_scan.ref.carry``) on meta
+    tensors: one operation over every position counts the loop's FLOPs,
+    bytes and peak."""
+    from repro_torch.kernels.selective_scan.ref import carry as _carry
 
     def run(stepwise):
         x, c = _meta(2, 64, 8, 4), _meta(2, 63, 8, 4)
@@ -228,9 +228,9 @@ def test_recurrence_on_meta_counts_what_its_loop_counts(reverse):
 
 
 def test_recurrence_carry_values_equal_the_loop():
-    """On real tensors ``_carry`` is the recurrence's loop as it was
+    """On real tensors ``carry`` is the recurrence's loop as it was
     written, value for value."""
-    from repro_torch.models.layers import _carry
+    from repro_torch.kernels.selective_scan.ref import carry as _carry
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 9, 3, 4, generator=g)
     a = torch.rand(2, 9, 3, 4, generator=g)

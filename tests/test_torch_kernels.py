@@ -21,6 +21,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.kmeans import ops as kmeans_ops
 from repro_torch.kernels.kmeans.kernel import assign_clusters_cuda
 from repro_torch.kernels.kmeans.ref import assign_clusters_ref
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.simvote import ops as simvote_ops
 from repro_torch.kernels.simvote.kernel import (simvote_scores_cuda,
                                                 simvote_scores_segmented_cuda)
@@ -168,13 +171,67 @@ def test_flash_attention_ref_matches_reference(jx, B, H, KV, S, hd, window,
         np.testing.assert_allclose(pt, _np(ref), rtol=tol, atol=tol)
 
 
+# ------------------------------------------------------------------ K6
+def _scan_inputs(Bt, S, di, dtype, given, seed=0):
+    """K6's inputs as Jamba's layer makes them: A_log = log(1..16) a
+    channel, dt = softplus(N(0, 1) - 4.6) (dt_bias -4.6), x = silu of a
+    normal and z normal in ``dtype``, B, C normal, D near 1; h0 normal
+    where ``given``.  Numpy-drawn, on the CPU."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    x = torch.nn.functional.silu(f(Bt, S, di)).to(TORCH_DTYPES[dtype])
+    dt = torch.nn.functional.softplus(f(Bt, S, di) - 4.6)
+    A = -torch.arange(1, 17, dtype=torch.float32).log().exp().expand(
+        di, 16).contiguous()
+    return (x, dt, f(Bt, S, 16), f(Bt, S, 16),
+            f(Bt, S, di).to(TORCH_DTYPES[dtype]), A, 1 + 0.1 * f(di),
+            f(Bt, di, 16) if given else None)
+
+
+@pytest.mark.parametrize("S", [1, 17, 40])
+@pytest.mark.parametrize("given", [False, True], ids=["zeros", "h0"])
+def test_selective_scan_plain_is_the_recurrence(S, given):
+    """``ops.selective_scan`` on the CPU (the plain version, in chunks of
+    16 with a tail) against the recurrence written out a step at a time
+    in float64: y and the final state, within float32's rounding over
+    40 steps."""
+    x, dt, B, C, z, A, D, h0 = _scan_inputs(3, S, 24, "float32", given)
+    y, h_last = scan_ops.selective_scan(x, dt, B, C, z, A, D, h0, chunk=16)
+    d = lambda t: t.double()
+    h = torch.zeros(3, 24, 16, dtype=torch.float64) if h0 is None else d(h0)
+    want = []
+    for t in range(S):
+        h = torch.exp(d(dt[:, t, :, None]) * d(A)) * h \
+            + (d(dt[:, t]) * d(x[:, t]))[..., None] * d(B[:, t, None, :])
+        yt = torch.einsum("bds,bs->bd", h, d(C[:, t])) + d(D) * d(x[:, t])
+        want.append(yt * torch.nn.functional.silu(d(z[:, t])))
+    assert y.dtype == x.dtype and h_last.dtype == torch.float32
+    torch.testing.assert_close(y.double(), torch.stack(want, 1), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(h_last.double(), h, rtol=1e-5, atol=1e-6)
+
+
+def test_selective_scan_wrapper_refuses_other_state_sizes():
+    """K6 holds 16 states a channel in registers: any other d_state is
+    refused before the device check and before anything launches."""
+    x, dt, B, C, z, A, D, _ = _scan_inputs(1, 4, 8, "float32", False)
+    before = selective_scan_cuda.launches
+    for n in (8, 32):
+        with pytest.raises(ValueError, match="d_state"):
+            selective_scan_cuda(x, dt, B[..., :1].expand(1, 4, n),
+                                C[..., :1].expand(1, 4, n), z,
+                                A[:, :1].expand(8, n), D)
+    assert selective_scan_cuda.launches == before
+
+
 # ------------------------------------------------------------ dispatch
 def test_cpu_tensors_take_the_plain_versions():
     """A CPU tensor goes to the plain version and launches nothing."""
     x = torch.randn(40, 8)
     before = (assign_clusters_cuda.launches, simvote_scores_cuda.launches,
               simvote_scores_segmented_cuda.launches,
-              flash_attention_cuda.launches)
+              flash_attention_cuda.launches, selective_scan_cuda.launches)
     a, _ = kmeans_ops.assign_clusters(x, x[:3].contiguous())
     assert (a.numpy()[:3] == np.arange(3)).all()
     y = (torch.arange(5) % 2).float()
@@ -187,9 +244,13 @@ def test_cpu_tensors_take_the_plain_versions():
     q = torch.randn(1, 2, 16, 16)
     torch.testing.assert_close(flash_ops.flash_attention(q, q[:, :1], q[:, :1]),
                                flash_attention_ref(q, q[:, :1], q[:, :1]))
+    scan = _scan_inputs(2, 5, 8, "bfloat16", True)
+    for got, want in zip(scan_ops.selective_scan(*scan),
+                         selective_scan_ref(*scan)):
+        torch.testing.assert_close(got, want)
     after = (assign_clusters_cuda.launches, simvote_scores_cuda.launches,
              simvote_scores_segmented_cuda.launches,
-             flash_attention_cuda.launches)
+             flash_attention_cuda.launches, selective_scan_cuda.launches)
     assert after == before
 
 
@@ -203,7 +264,8 @@ def test_cpu_tensors_take_the_plain_versions():
     lambda: flash_attention_cuda(torch.zeros(1, 1, 4, 16),
                                  torch.zeros(1, 1, 4, 16),
                                  torch.zeros(1, 1, 4, 16)),
-], ids=["kmeans", "simvote", "simvote_segmented", "flash"])
+    lambda: selective_scan_cuda(*_scan_inputs(1, 4, 8, "bfloat16", True)),
+], ids=["kmeans", "simvote", "simvote_segmented", "flash", "selective_scan"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The kernel wrappers never fall back: a CPU tensor raises."""
     with pytest.raises(ValueError, match="CUDA"):
@@ -338,3 +400,48 @@ def test_cuda_flash_attention_non_causal_matches_plain(cuda, dtype):
         flash_attention_cuda(q, k, v, causal=False).float(),
         flash_attention_ref(q, k, v, causal=False).float(),
         rtol=tol, atol=tol)
+
+
+# K6 at the engine's batch (B 64, d_inner 8,192) at the buckets S 32 and
+# 64 from zeros, and at S 1, 17 (a partial tile and group) and 300 (ten
+# tiles, the last partial) from a given state
+SCAN_CUDA_CASES = [(32, False), (64, False), (1, True), (17, True),
+                   (300, True)]
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of bfloat16 at each value of ``t``
+    (8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,given", SCAN_CUDA_CASES)
+def test_cuda_selective_scan_matches_plain(cuda, S, given):
+    x, dt, B, C, z, A, D, h0 = (
+        None if t is None else t.to(cuda)
+        for t in _scan_inputs(64, S, 8192, "bfloat16", given))
+    B, C = (torch.cat([B, C, B], -1)[..., i * 16:(i + 1) * 16]
+            for i in (0, 1))  # views of one product, as the gates split
+    before = selective_scan_cuda.launches
+    y, h_last = selective_scan_cuda(x, dt, B, C, z, A, D, h0)
+    torch.cuda.synchronize()
+    assert selective_scan_cuda.launches == before + 1
+    want_y, want_h = selective_scan_ref(x, dt, B, C, z, A, D, h0, chunk=64)
+    torch.cuda.synchronize()
+    # the state: float32 with the plain version's operations in its
+    # order along t, the decay from exp2f a few units in the last place
+    # off torch.exp; the scale term admits elements that cancel near 0
+    torch.testing.assert_close(h_last, want_h, rtol=1e-5,
+                               atol=1e-5 * want_h.abs().max().item())
+    # y: the 16-term read-out may sum in another order, which can move
+    # the bfloat16 rounding of the gated output by one unit; where the
+    # read-out cancels to near 0, its float32 rounding (within 2^-23 of
+    # the largest output, measured on the card) can exceed a unit of the
+    # tiny result, so that much is allowed beside it
+    assert y.dtype == torch.bfloat16
+    diff = (y.float() - want_y.float()).abs()
+    floor = 2.0 ** -20 * want_y.float().abs().max()
+    assert (diff <= torch.maximum(_bf16_ulp(y), _bf16_ulp(want_y))
+            .clamp(min=floor)).all()

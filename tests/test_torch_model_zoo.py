@@ -8,7 +8,8 @@ weights (the reference's ``init_params`` tree through
 logits within ``TOL`` in float32, prefill caches within ``CACHE_TOL``.
 The MoE router's experts, kept slots and dispatch rows are compared
 exactly (ties included), the Switch aux within one float32 rounding;
-``apply_moe``'s chunked path, Mamba's multi-chunk carry and
+``apply_moe``'s chunked path, Mamba's multi-chunk carry, both routes of
+its scan (K6's op without autograd, the chunked recurrence with it) and
 ``mamba_decode`` against ``mamba_scan`` each within ``LAYER_TOL``.  The
 two reference behaviours that ROADMAP.md records (Mamba state absorbing
 right padding; MoE capacity depending on the bucket length) are shown on
@@ -28,8 +29,10 @@ from repro.models import lm as jlm
 from repro.models.config import LayerSpec as JLayerSpec
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.configs import smoke_config
+from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
 from repro_torch.models import layers, lm
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.obs.trace import Tracer, use_tracer
 
 TOL = 1e-4         # logits, float32, against the reference
 CACHE_TOL = 1e-5   # prefill caches (K/V, Mamba state and window)
@@ -299,6 +302,70 @@ def test_mamba_scan_chunks_match_reference(ssm_chunk, S):
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        rtol=LAYER_TOL, atol=LAYER_TOL)
         assert gh.dtype == torch.float32
+
+
+def _scan_routes(run):
+    """``run()``'s result and how many ``mamba_scan`` calls took K6's op
+    and the chunked recurrence, read from the tracer's counters."""
+    with use_tracer(Tracer()) as tr:
+        out = run()
+    snap = tr.metrics.snapshot()
+    return out, (snap.get("mamba.scan_kernel", 0),
+                 snap.get("mamba.scan_plain", 0))
+
+
+@pytest.mark.parametrize("S", [1, 17, 40])
+@pytest.mark.parametrize("given", [False, True], ids=["zeros", "h0"])
+def test_mamba_scan_routes_match_each_other_and_reference(S, given):
+    """Without autograd the scan takes K6's op (on the CPU its plain
+    version, launching nothing); with a parameter that requires grad it
+    takes the chunked recurrence.  Both give the reference's y and final
+    state, at ssm_chunk 16 (S 17 and 40 end in a tail chunk), from zeros
+    and from a given state; they run the same float32 steps, so they
+    agree exactly."""
+    jcfg, tcfg, jp, tp = _mamba_layer(16)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, S, 64)).astype(np.float32)
+    state = {}
+    if given:
+        state = {"h0": rng.normal(size=(2, tcfg.d_inner, tcfg.ssm_state)),
+                 "conv0": rng.normal(size=(2, tcfg.ssm_conv - 1,
+                                           tcfg.d_inner))}
+        state = {k: v.astype(np.float32) for k, v in state.items()}
+    ref, (rh, _) = jlayers.mamba_scan(
+        jcfg, jp, jnp.asarray(x), **{k: jnp.asarray(v)
+                                     for k, v in state.items()})
+    args = {k: torch.from_numpy(v) for k, v in state.items()}
+    launches = selective_scan_cuda.launches
+    with torch.no_grad():
+        (op_y, (op_h, _)), routes = _scan_routes(
+            lambda: layers.mamba_scan(tcfg, tp, torch.from_numpy(x), **args))
+    assert routes == (1, 0)
+    grad_p = {k: v.clone().requires_grad_(k == "D") for k, v in tp.items()}
+    (rec_y, (rec_h, _)), routes = _scan_routes(
+        lambda: layers.mamba_scan(tcfg, grad_p, torch.from_numpy(x), **args))
+    assert routes == (0, 1)
+    assert selective_scan_cuda.launches == launches
+    assert torch.equal(op_y, rec_y.detach())
+    assert torch.equal(op_h, rec_h.detach())
+    for got, want in ((op_y, ref), (op_h, rh)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=LAYER_TOL, atol=LAYER_TOL)
+    rec_y.sum().backward()  # the recurrence still differentiates
+    assert grad_p["D"].grad is not None and grad_p["D"].grad.abs().sum() > 0
+
+
+def test_mamba_scan_on_meta_takes_the_stand_in():
+    """A meta tensor (the dry run) takes the chunked recurrence, whose
+    carry is one operation on meta, and so counts what it counted before
+    K6."""
+    _, tcfg, _, tp = _mamba_layer(8)
+    meta = {k: v.to("meta") for k, v in tp.items()}
+    with torch.no_grad():
+        (y, (h, _)), routes = _scan_routes(lambda: layers.mamba_scan(
+            tcfg, meta, torch.empty((2, 20, 64), device="meta")))
+    assert routes == (0, 1)
+    assert y.is_meta and tuple(h.shape) == (2, tcfg.d_inner, tcfg.ssm_state)
 
 
 def test_mamba_decode_matches_scan_and_reference():

@@ -583,7 +583,8 @@ def test_train_main_refuses_cuda_without_a_card_and_a_small_mesh(
 def test_recurrence_backward_is_the_derivative():
     """The Mamba scan's in-place recurrence against finite differences in
     float64 (its backward is written by hand)."""
-    from repro_torch.models.layers import _Recurrence
+    from repro_torch.kernels.selective_scan.ref import \
+        Recurrence as _Recurrence
     g = torch.Generator().manual_seed(0)
     h0, a, b = (torch.randn(shape, generator=g, dtype=torch.float64)
                 .requires_grad_(True)
