@@ -14,40 +14,15 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import importlib.util
 import time
 
 import numpy as np
 import torch
 
-from benchkit import csv_ref, data, reference, spec, text, weights
+from benchkit import csv_ref, data, reference, spec, text
 from benchkit.data import stream_seed
 
 WARM_QUERY = 1 << 40  # the warm-up's query index, outside the window's
-
-
-def model_config(conf: dict, d: dict):
-    """The program's ``ModelConfig`` for a configuration file."""
-    from repro_torch.models.config import LayerSpec, ModelConfig
-    kinds = d["layers"]
-    p = spec.period(kinds)
-    srv = conf["serving"]
-    mcfg = ModelConfig(
-        name=conf["name"], family=srv["family"], n_layers=len(kinds),
-        d_model=d["D"], n_heads=d["H"], n_kv_heads=d["KV"], d_ff=d["F"],
-        vocab_size=d["V"], head_dim=d["hd"],
-        pattern=tuple(LayerSpec(kind=m, ffn=f) for m, f in kinds[:p]),
-        n_experts=d["E"] if d["E"] > 1 else 0,
-        top_k=d["K"] if d["E"] > 1 else 0,
-        capacity_factor=d["cf"], ssm_state=d.get("ds", 16),
-        ssm_conv=d.get("dc", 4),
-        ssm_expand=conf.get("mamba_expand", 2), rope_theta=d["theta"],
-        norm_eps=d["eps"], dtype=srv["dtype"], tie_embeddings=d["tied"],
-        attn_impl=srv["attn_impl"], moe_chunk=srv["moe_chunk"])
-    if "dr" in d and mcfg.dt_rank != d["dr"]:
-        raise ValueError(f"the program derives dt_rank {mcfg.dt_rank}, the "
-                         f"configuration states {d['dr']}")
-    return mcfg
 
 
 def policy(mix: dict):
@@ -104,15 +79,18 @@ class RouteLog:
 
 
 class Cell:
-    """The cell's program objects, built once per process."""
+    """The cell's program objects, built once per process, and its
+    architecture module (``arch``), which gives the sizes, the program's
+    config, the weights and the reference."""
 
     def __init__(self, cell: dict, device, table: data.Table = None):
         from repro_torch.data import HashTokenizer
         self.conf, self.mix = cell["config"], cell["mix"]
         self.limits, self.name = cell["limits"], cell["workload"]["name"]
         self.device = torch.device(device)
-        self.d = spec.dims(self.conf)
-        self.mcfg = model_config(self.conf, self.d)
+        self.arch = spec.arch(self.conf)
+        self.d = self.arch.dims(self.conf)
+        self.mcfg = self.arch.program_config(self.conf, self.d)
         self.table = table or data.Table(self.mix, self.device)
         self.tok = HashTokenizer(self.d["V"])
         self.n_moe = sum(f == "moe" for _, f in self.d["layers"])
@@ -125,7 +103,7 @@ class Cell:
         self.seed = seed
         self.params = self.routes = None
         gc.collect()
-        self.params = weights.make_params(
+        self.params = self.arch.make_params(
             self.d, seed, getattr(torch, self.conf["serving"]["dtype"]),
             self.device)
         self.engine = ServingEngine(self.mcfg, self.params,
@@ -264,7 +242,7 @@ def logit_errors(cell: Cell, qs: list, seed: int, program=None) -> dict:
             route = cell.routes.find(r["oracle"].spans[k], toks, T,
                                      cell.n_moe)
         groups.setdefault(T, []).append((toks, served, route))
-    layers = weights.layer_list(cell.params)
+    layers = cell.arch.layer_list(cell.params)
     tid = torch.tensor([text.YES, text.NO], device=cell.device)
     K = cell.d["K"]
     got, want, excess = [], [], []
@@ -291,7 +269,7 @@ def logit_errors(cell: Cell, qs: list, seed: int, program=None) -> dict:
                 logits, given = program(toks, lens, tid)
                 got.append(logits)
             route = reference.Route(given)
-            ref = reference.yes_no_logits(cell.d, cell.params, layers, toks,
+            ref = cell.arch.yes_no_logits(cell.d, cell.params, layers, toks,
                                           lens, tid, route=route)
             want.append(ref.cpu().numpy())
             ex = np.zeros(len(part), np.float32)
@@ -381,9 +359,5 @@ def checks(numbers: dict, limits: dict) -> list:
 
 
 def load_reader(name: str):
-    path = spec.BENCH / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return spec.load_module(spec.BENCH / "metrics" / f"{name}.py",
+                            f"bench_metric_{name}").read

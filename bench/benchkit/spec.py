@@ -1,22 +1,24 @@
 """The benchmark's data files: BENCHMARK.json, a configuration, a traffic
-mix and a configuration's correctness limits, each found by name.
+mix and a configuration's correctness limits, each found by name, and
+the architecture module a configuration names.
 
 A configuration file holds the published config's keys (Hugging Face
 names) as they are run, the keys changed from the source in ``reduced``,
-the sizes set here in ``assumed``, and a ``serving`` group with what the
+the sizes set here in ``assumed``, a ``serving`` group with what the
 program is told besides (its dtype, attention path, MoE capacity, engine
-batch).  ``layer_kinds`` turns the published layout keys into one entry
-per layer, the form that both the program's config and the plain
-reference are built from.
+batch), and optionally ``arch``, the module under ``bench/archs`` that
+reads its layout (``decoder`` by default).
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "bench"
+ARCHS = BENCH / "archs"
 
 
 def load_json(path) -> dict:
@@ -41,42 +43,24 @@ def cell(name: str) -> dict:
             "benchmark": bm}
 
 
-def layer_kinds(conf: dict) -> list:
-    """[(mixer, ffn)] for every layer: mixer "attn" or "mamba", ffn
-    "dense" or "moe", from Jamba-style period/offset keys (a config
-    without them is attention and dense throughout)."""
-    n = conf["num_hidden_layers"]
-    out = []
-    for i in range(n):
-        mixer = "attn"
-        if "attn_layer_period" in conf:
-            p, o = conf["attn_layer_period"], conf["attn_layer_offset"]
-            mixer = "attn" if i % p == o else "mamba"
-        ffn = "dense"
-        if conf.get("num_experts", 1) > 1:
-            p, o = conf["expert_layer_period"], conf["expert_layer_offset"]
-            ffn = "moe" if i % p == o else "dense"
-        out.append((mixer, ffn))
-    return out
+def load_module(path, name: str):
+    """A module of the benchmark's own, loaded from its file by path."""
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
 
 
-def dims(conf: dict) -> dict:
-    """The sizes both sides use, in one flat dict."""
-    D = conf["hidden_size"]
-    H = conf["num_attention_heads"]
-    d = {"D": D, "H": H, "KV": conf["num_key_value_heads"],
-         "hd": conf.get("head_dim") or D // H,
-         "F": conf["intermediate_size"], "V": conf["vocab_size"],
-         "E": conf.get("num_experts", 1), "K": conf.get("num_experts_per_tok", 1),
-         "eps": conf["rms_norm_eps"], "theta": conf["rope_theta"],
-         "tied": conf["tie_word_embeddings"],
-         "cf": conf["serving"]["capacity_factor"],
-         "layers": layer_kinds(conf)}
-    if "mamba_d_state" in conf:
-        d.update(ds=conf["mamba_d_state"], dc=conf["mamba_d_conv"],
-                 di=conf["mamba_expand"] * D, dr=conf["mamba_dt_rank"])
-    d["Vp"] = (d["V"] + 127) // 128 * 128   # the program pads its table
-    return d
+def arch(conf: dict):
+    """The architecture module a configuration names under ``"arch"``:
+    ``ARCHS/<name>.py``, ``decoder`` where it names none.  It gives the
+    flat sizes (``dims``, with ``layers`` as [(mixer, ffn)]), the
+    program's config (``program_config``), the cut to CPU test size
+    (``smoke``), the weights (``make_params``, ``layer_list``), the
+    plain float32 reference (``yes_no_logits``) and the FLOP count
+    (``prefill_flops``), so that a new architecture is new files only."""
+    name = conf.get("arch", "decoder")
+    return load_module(ARCHS / f"{name}.py", f"bench_arch_{name}")
 
 
 def period(kinds: list) -> int:

@@ -11,27 +11,21 @@ for _p in (os.path.join(_HERE, "..", "src"), _HERE):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-SMOKE_WIDTHS = dict(hidden_size=64, intermediate_size=128,
-                    num_attention_heads=4, num_key_value_heads=2,
-                    vocab_size=512)
 SMOKE_LIMITS = {"assign_diff": 0, "ids_diff": 0, "rows_diff": 0,
                 "label_diff": 0, "engine_diff": 0, "logit_err": 1e-3}
 
 
 def smoke_spec(workload: str = "jamba.tc", rows: int = 3000,
                dim: int = 64, own_limits: bool = False) -> dict:
-    """A cell of BENCHMARK.json with its configuration cut to smoke widths
-    (jamba: 8 layers, one period, 4 experts), its table to ``rows`` x
+    """A cell of BENCHMARK.json with its configuration cut to smoke size
+    by its architecture module's ``smoke``, its table to ``rows`` x
     ``dim``, samples of 24 rows, float32, and limits for a float32
     program (or, with ``own_limits``, the cell's own)."""
     from benchkit import spec
     cs = copy.deepcopy(spec.cell(workload))
     conf = cs["config"]
-    conf.update(SMOKE_WIDTHS)
-    if "mamba_d_state" in conf:
-        conf.update(num_hidden_layers=8, num_experts=4, mamba_dt_rank=4)
-    else:
-        conf.update(num_hidden_layers=2)
+    arch = spec.arch(conf)
+    arch.smoke(conf)
     conf["serving"]["dtype"] = "float32"
     mix = cs["mix"]
     mix["table"].update(rows=rows, dim=dim)
@@ -39,7 +33,7 @@ def smoke_spec(workload: str = "jamba.tc", rows: int = 3000,
     mix["check"] = {"queries": 2, "prompts": 48, "block": 48}
     if not own_limits:
         cs["limits"] = {"compare": dict(SMOKE_LIMITS)}
-        if conf.get("num_experts", 1) > 1:
+        if arch.dims(conf)["E"] > 1:
             cs["limits"]["compare"]["route_diff"] = 0
             cs["limits"]["router_margin"] = 1e-3
     return cs

@@ -42,13 +42,13 @@ def control_side(cell, queries: list, win: dict, seed: int):
     the program's place, and its logit errors."""
     from benchkit import cell as C
     from benchkit import csv_ref
-    layers = C.weights.layer_list(cell.params)
+    layers = cell.arch.layer_list(cell.params)
 
     def fp8(toks, lens, tid):
         route = C.reference.Route()
-        out = C.reference.yes_no_logits(cell.d, cell.params, layers, toks,
-                                        lens, tid, precision="fp8",
-                                        route=route)
+        out = cell.arch.yes_no_logits(cell.d, cell.params, layers, toks,
+                                      lens, tid, precision="fp8",
+                                      route=route)
         return out.cpu().numpy(), route.chosen or None
 
     pol = cell.mix["policy"]

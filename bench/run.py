@@ -105,10 +105,11 @@ def run(cell_spec: dict, seed: int, seconds: float, trace: bool,
 
 class _Context:
     """What the per-layer readers read: the window's queries and counts,
-    the program's spans, the device trace, the served prompt lengths."""
+    the program's spans, the device trace, the served prompt lengths, the
+    cell's sizes and its architecture module."""
 
     def __init__(self, cell, win, tracer, dtrace):
-        self.d = cell.d
+        self.arch, self.d = cell.arch, cell.d
         self.win = win
         self.spans = tracer.spans()
         self.trace = dtrace

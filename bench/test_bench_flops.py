@@ -7,8 +7,7 @@ half, empty capacity slots and the vocabulary-free head leave out."""
 import pytest
 import torch
 
-from benchkit import cell as C
-from benchkit import flops, spec, weights
+from benchkit import flops, spec
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.models import lm
 
@@ -17,18 +16,19 @@ from repro_torch.models import lm
 @pytest.mark.parametrize("T", [32, 64])
 def test_count_equals_op_cost(smoke, workload, T):
     cs = smoke(workload)
-    d = spec.dims(cs["config"])
-    mcfg = C.model_config(cs["config"], d).replace(attn_impl="plain")
-    params = weights.make_params(d, 1, torch.float32, "cpu")
+    arch = spec.arch(cs["config"])
+    d = arch.dims(cs["config"])
+    mcfg = arch.program_config(cs["config"], d).replace(attn_impl="plain")
+    params = arch.make_params(d, 1, torch.float32, "cpu")
     B = 5
     lens = torch.full((B,), T)
     toks = torch.randint(8, d["V"], (B, T))
     with torch.no_grad(), OpCost() as cost:
         lm.first_logits_select(mcfg, params, toks, lens,
                                torch.tensor([[3, 4]] * B))
-    ours = flops.prefill_flops(d, [T] * B, T=T, executed=True)
+    ours = arch.prefill_flops(d, [T] * B, T=T, executed=True)
     assert abs(ours - cost.flops) <= 1e-3 * cost.flops
-    useful = flops.prefill_flops(d, [T // 2] * B)
+    useful = arch.prefill_flops(d, [T // 2] * B)
     assert 0 < useful < ours
 
 

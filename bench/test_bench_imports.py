@@ -1,6 +1,7 @@
 """Nothing the harness loads is JAX or the JAX package (top-level names
 compared whole: the port's ``repro_torch`` starts with ``repro``), and
-the reference side loads nothing of the program."""
+the reference side, the architecture modules under ``archs/`` with it,
+loads nothing of the program."""
 import os
 import subprocess
 import sys
@@ -12,17 +13,21 @@ HARNESS = """
 import sys, glob, os
 sys.path[:0] = [{bench!r}, os.path.join({bench!r}, "..", "src")]
 import run, control
-from benchkit import cell, csv_ref, data, devtrace, flops, oracle, reference, spec, text, weights
+from benchkit import cell, csv_ref, data, devtrace, flops, oracle, reference, spec, text
 for path in sorted(glob.glob(os.path.join({bench!r}, "metrics", "*.py"))):
     cell.load_reader(os.path.basename(path)[:-3])
+for path in sorted(glob.glob(os.path.join({bench!r}, "archs", "[!_]*.py"))):
+    spec.arch({{"arch": os.path.basename(path)[:-3]}})
 import repro_torch.api, repro_torch.serving, repro_torch.models.lm
 print(" ".join(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 REFERENCE = """
-import sys, os
+import sys, os, glob
 sys.path[:0] = [{bench!r}]
-from benchkit import csv_ref, data, flops, reference, spec, text, weights
+from benchkit import csv_ref, data, flops, reference, spec, text
+for path in sorted(glob.glob(os.path.join({bench!r}, "archs", "[!_]*.py"))):
+    spec.arch({{"arch": os.path.basename(path)[:-3]}})
 print(" ".join(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
